@@ -1,0 +1,140 @@
+"""Rasterization orchestrator: tiles in, full-frame images out (port of
+``repro/core/raster.py``; ``render_oracle`` is not ported yet).
+
+``render_plan_slots`` rasterizes only a TilePlan's R compacted slots and
+scatters the tile images back into the full frame (untouched tiles read
+as empty: rgb 0, T = 1). ``render_from_bins`` keeps the dense (T,) layout.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.core import binning
+from repro_torch.core.camera import TILE
+from repro_torch.core.intersect import TileGrid
+from repro_torch.core.projection import ProjectedGaussians
+from repro_torch.kernels import ops as kops
+
+
+class RenderOutput(NamedTuple):
+    rgb: torch.Tensor            # (H, W, 3)
+    transmittance: torch.Tensor  # (H, W) final T per pixel
+    exp_depth: torch.Tensor      # (H, W) opacity-weighted depth (Sec. IV-A)
+    trunc_depth: torch.Tensor    # (H, W) early-stop depth (Sec. IV-B)
+    processed_pairs: torch.Tensor  # (T,) pairs traversed per tile
+    # Per (bin row, lane) sum of blend weights over the tile's pixels, in
+    # bin lane order; rows follow the call's bin layout ((T, K) dense,
+    # (R, K) plan slots). Per Gaussian: the same mass summed over the bin
+    # indices.
+    lane_contrib: torch.Tensor   # (rows, K) float32
+    # (N,) float32; None from ``render_plan_slots(..., contrib=False)``.
+    gauss_contrib: Optional[torch.Tensor]
+
+
+def scatter_add(size: int, index: torch.Tensor,
+                values: torch.Tensor) -> torch.Tensor:
+    """Deterministic ``zeros((size, ...)).at[index].add(values)``.
+
+    ``index_add_`` on CUDA accumulates with atomics in no fixed order;
+    under ``torch.use_deterministic_algorithms(True)`` torch sorts the
+    indices and sums each run in order instead. The mode is switched on
+    for this call only and restored after it.
+    """
+    out = torch.zeros((size,) + tuple(values.shape[1:]), dtype=values.dtype,
+                      device=values.device)
+    prev = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        out.index_add_(0, index.long(), values)
+    finally:
+        torch.use_deterministic_algorithms(prev, warn_only=warn_only)
+    return out
+
+
+def untile(tiles: torch.Tensor, tiles_x: int, tiles_y: int) -> torch.Tensor:
+    """(T, TILE, TILE, C?) -> (H, W, C?)."""
+    extra = tuple(tiles.shape[3:])
+    x = tiles.reshape(tiles_y, tiles_x, TILE, TILE, *extra)
+    x = x.transpose(1, 2)
+    return x.reshape(tiles_y * TILE, tiles_x * TILE, *extra)
+
+
+def tile_view(img: torch.Tensor, tiles_x: int, tiles_y: int) -> torch.Tensor:
+    """(H, W, C?) -> (T, TILE, TILE, C?). Inverse of ``untile``."""
+    extra = tuple(img.shape[2:])
+    x = img.reshape(tiles_y, TILE, tiles_x, TILE, *extra)
+    x = x.transpose(1, 2)
+    return x.reshape(tiles_y * tiles_x, TILE, TILE, *extra)
+
+
+def _gauss_contrib(proj: ProjectedGaussians, bins: binning.TileBins,
+                   lane_contrib: torch.Tensor) -> torch.Tensor:
+    """(rows, K) per-lane contributions -> (N,) per-Gaussian totals.
+
+    Invalid lanes contribute exactly 0 (their opacity is zeroed by
+    ``gather_tiles``); they are left out so that their arbitrary indices
+    form no long runs in the sorted scatter-add.
+    """
+    return scatter_add(proj.depth.shape[0], bins.indices[bins.valid],
+                       lane_contrib[bins.valid])
+
+
+def render_from_bins(proj: ProjectedGaussians, bins: binning.TileBins,
+                     grid: TileGrid, *, impl: Optional[str] = None,
+                     chunk: int = 64) -> RenderOutput:
+    tg = binning.gather_tiles(proj, bins)
+    rgb_t, trans_t, d_t, td_t, proc, contrib = kops.raster_tiles(
+        tg.mean2d, tg.conic, tg.rgb, tg.opacity, tg.depth,
+        grid.origins, bins.count, impl=impl, chunk=chunk)
+    return RenderOutput(
+        rgb=untile(rgb_t, grid.tiles_x, grid.tiles_y),
+        transmittance=untile(trans_t, grid.tiles_x, grid.tiles_y),
+        exp_depth=untile(d_t, grid.tiles_x, grid.tiles_y),
+        trunc_depth=untile(td_t, grid.tiles_x, grid.tiles_y),
+        processed_pairs=proc, lane_contrib=contrib,
+        gauss_contrib=_gauss_contrib(proj, bins, contrib))
+
+
+def render_plan_slots(proj: ProjectedGaussians, bins: binning.TileBins,
+                      slot_origins: torch.Tensor, tile_ids: torch.Tensor,
+                      grid: TileGrid, *, impl: Optional[str] = None,
+                      chunk: int = 64,
+                      slot_active: Optional[torch.Tensor] = None,
+                      contrib: bool = True) -> RenderOutput:
+    """Rasterize a TilePlan's R slots, scatter back to the (T,) frame.
+
+    ``bins`` is the (R, K) compacted binning; ``slot_active`` is the
+    plan's slot mask (the fused kernel skips masked slots). Tiles outside
+    the plan read back as empty (rgb/depth 0, transmittance 1, 0 pairs).
+    ``contrib=False`` skips the per-Gaussian scatter-add (a host sync and
+    a sort over every valid pair) and leaves ``gauss_contrib`` None.
+    """
+    tg = binning.gather_tiles(proj, bins)
+    rgb_s, trans_s, d_s, td_s, proc, contrib_s = kops.raster_tiles(
+        tg.mean2d, tg.conic, tg.rgb, tg.opacity, tg.depth,
+        slot_origins, bins.count, impl=impl, chunk=chunk,
+        slot_active=slot_active)
+    t = grid.num_tiles
+    ids = tile_ids.long()
+    f32 = dict(dtype=torch.float32, device=rgb_s.device)
+    rgb_all = torch.zeros((t, TILE, TILE, 3), **f32)
+    trans_all = torch.ones((t, TILE, TILE), **f32)
+    d_all = torch.zeros((t, TILE, TILE), **f32)
+    td_all = torch.zeros((t, TILE, TILE), **f32)
+    proc_all = torch.zeros((t,), dtype=torch.int32, device=rgb_s.device)
+    rgb_all[ids] = rgb_s
+    trans_all[ids] = trans_s
+    d_all[ids] = d_s
+    td_all[ids] = td_s
+    proc_all[ids] = proc
+    return RenderOutput(
+        rgb=untile(rgb_all, grid.tiles_x, grid.tiles_y),
+        transmittance=untile(trans_all, grid.tiles_x, grid.tiles_y),
+        exp_depth=untile(d_all, grid.tiles_x, grid.tiles_y),
+        trunc_depth=untile(td_all, grid.tiles_x, grid.tiles_y),
+        processed_pairs=proc_all, lane_contrib=contrib_s,
+        gauss_contrib=_gauss_contrib(proj, bins, contrib_s) if contrib
+        else None)

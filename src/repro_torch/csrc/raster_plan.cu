@@ -1,0 +1,226 @@
+// Fused per-slot depth sort + alpha blend for Hopper (sm_90a).
+//
+// Replaces repro/kernels/raster_plan.py::_fused_kernel (the Pallas
+// kernel behind raster_plan_fused). One CTA per plan slot, 256 threads,
+// one thread per pixel of the slot's 16x16 tile:
+//
+//   1. the slot's lanes [0, count) are keyed by depth, padding by +inf,
+//      and bitonic-sorted in shared memory by (depth, original lane), the
+//      original lane index riding the compare-exchanges as the payload;
+//      only the first pow2(count) lanes take part (the padding tail is
+//      already in order);
+//   2. the nine blend attributes are gathered into shared memory in
+//      sorted order (11 x 4 B x K_pad in all: 44 KiB at K_pad = 1024);
+//   3. front-to-back blend chunk by chunk with the reference semantics
+//      (alpha = min(o e^power, 0.99), alpha < 1/255 -> 0, sticky done at
+//      T < 1e-4); the CTA stops once every pixel is done
+//      (__syncthreads_or), as chunk_cond does in the Pallas kernel;
+//   4. each lane's contribution (sum over the 256 pixels of alpha*T) is
+//      reduced in a fixed order (xor-shuffles in the warp, then the eight
+//      warp partials in order), so runs repeat bit for bit, and written
+//      straight to its INPUT lane through the payload.
+//
+// What bounds it: the blend's arithmetic (about 16 flops and one expf per
+// pixel and lane reached before the pixel is done, 17 more where the
+// lane blends); bytes are small (each real lane's 40 B record is read
+// once). The design keeps every lane in
+// shared memory from sort to blend, reads it there as a broadcast (all
+// threads of a warp read the same address), and skips inactive or empty
+// slots before the sort.
+//
+// Built with -fmad=false so that the per-pixel arithmetic rounds as the
+// plain PyTorch version's separate operations do.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kTile = 16;
+constexpr int kThreads = kTile * kTile;
+constexpr int kWarps = kThreads / 32;
+constexpr float kAlphaMin = 1.0f / 255.0f;
+constexpr float kAlphaMax = 0.99f;
+constexpr float kTEps = 1e-4f;
+
+__device__ __forceinline__ bool after(float ka, int ia, float kb, int ib) {
+  return ka > kb || (ka == kb && ia > ib);
+}
+
+__global__ void __launch_bounds__(kThreads) raster_plan_kernel(
+    const float* __restrict__ mean2d, const float* __restrict__ conic,
+    const float* __restrict__ rgb, const float* __restrict__ opacity,
+    const float* __restrict__ depth, const float* __restrict__ origins,
+    const int* __restrict__ counts, const int* __restrict__ slot_active,
+    float* __restrict__ out_rgb, float* __restrict__ out_trans,
+    float* __restrict__ out_depth, float* __restrict__ out_tdepth,
+    int* __restrict__ out_processed, float* __restrict__ out_contrib,
+    int k, int k_pad, int chunk) {
+  extern __shared__ float smem[];
+  float* s_key = smem;                      // depth; later per-lane contrib
+  int* s_idx = reinterpret_cast<int*>(smem + k_pad);
+  float* s_op = smem + 2 * k_pad;
+  float* s_mx = smem + 3 * k_pad;
+  float* s_my = smem + 4 * k_pad;
+  float* s_ca = smem + 5 * k_pad;
+  float* s_cb = smem + 6 * k_pad;
+  float* s_cc = smem + 7 * k_pad;
+  float* s_r = smem + 8 * k_pad;
+  float* s_g = smem + 9 * k_pad;
+  float* s_b = smem + 10 * k_pad;
+  float* s_part = smem + 11 * k_pad;        // [kWarps][chunk]
+
+  const int slot = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int count = min(max(counts[slot], 0), k);
+  const bool active = slot_active[slot] != 0 && count > 0;
+  const size_t row = static_cast<size_t>(slot) * k;
+
+  for (int l = tid; l < k_pad; l += kThreads) {
+    s_key[l] = (active && l < count) ? depth[row + l] : INFINITY;
+    s_idx[l] = l;
+  }
+  __syncthreads();
+
+  // ---- bitonic sort of (depth, lane) over the first pow2(count) lanes ----
+  if (active) {
+    int n_sort = 1;
+    while (n_sort < count) n_sort <<= 1;
+    for (int span = 2; span <= n_sort; span <<= 1) {
+      for (int stride = span >> 1; stride > 0; stride >>= 1) {
+        for (int p = tid; p < n_sort / 2; p += kThreads) {
+          const int lo = (p / stride) * 2 * stride + (p % stride);
+          const int hi = lo + stride;
+          const float ka = s_key[lo], kb = s_key[hi];
+          const int ia = s_idx[lo], ib = s_idx[hi];
+          const bool up = (lo & span) == 0;
+          if (up ? after(ka, ia, kb, ib) : after(kb, ib, ka, ia)) {
+            s_key[lo] = kb;
+            s_key[hi] = ka;
+            s_idx[lo] = ib;
+            s_idx[hi] = ia;
+          }
+        }
+        __syncthreads();
+      }
+    }
+  }
+
+  // ---- gather the blend record in sorted order; padding lanes read 0 ----
+  for (int s = tid; s < k_pad; s += kThreads) {
+    const bool real = active && s < count;
+    const size_t g = row + (real ? s_idx[s] : 0);
+    s_key[s] = real ? s_key[s] : 0.0f;  // padding depth 0: 0 * inf is NaN
+    s_op[s] = real ? opacity[g] : 0.0f;
+    s_mx[s] = real ? mean2d[2 * g] : 0.0f;
+    s_my[s] = real ? mean2d[2 * g + 1] : 0.0f;
+    s_ca[s] = real ? conic[3 * g] : 0.0f;
+    s_cb[s] = real ? conic[3 * g + 1] : 0.0f;
+    s_cc[s] = real ? conic[3 * g + 2] : 0.0f;
+    s_r[s] = real ? rgb[3 * g] : 0.0f;
+    s_g[s] = real ? rgb[3 * g + 1] : 0.0f;
+    s_b[s] = real ? rgb[3 * g + 2] : 0.0f;
+  }
+
+  // ---- chunked front-to-back blend, one thread per pixel ----
+  const float px = (static_cast<float>(tid % kTile) + origins[2 * slot]) + 0.5f;
+  const float py =
+      (static_cast<float>(tid / kTile) + origins[2 * slot + 1]) + 0.5f;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  float t_run = 1.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
+  float d_acc = 0.0f, w_acc = 0.0f, td_max = 0.0f;
+  bool done = false;
+  const int used = active ? min((count + chunk - 1) / chunk, k_pad / chunk) : 0;
+  int n_run = 0;
+  for (int i = 0; i < used; ++i) {
+    if (!__syncthreads_or(!done)) break;
+    ++n_run;
+    float cp = 1.0f, t_new = t_run, tp = t_run;
+    float sc0 = 0.0f, sc1 = 0.0f, sc2 = 0.0f, sd = 0.0f, sw = 0.0f;
+    for (int jj = 0; jj < chunk; ++jj) {
+      const int j = i * chunk + jj;
+      const float dx = px - s_mx[j];
+      const float dy = py - s_my[j];
+      const float power =
+          -0.5f * (s_ca[j] * dx * dx + s_cc[j] * dy * dy) - s_cb[j] * dx * dy;
+      float alpha = s_op[j] * expf(power);
+      alpha = (alpha >= kAlphaMin) ? fminf(alpha, kAlphaMax) : 0.0f;
+      const float t_before = t_run * cp;
+      cp = cp * (1.0f - alpha);
+      tp = t_run * cp;
+      const bool blend = (tp >= kTEps) && !done;
+      const float w = blend ? alpha * t_before : 0.0f;
+      sc0 += w * s_r[j];
+      sc1 += w * s_g[j];
+      sc2 += w * s_b[j];
+      sd += w * s_key[j];
+      sw += w;
+      if (blend && alpha > 0.0f) td_max = fmaxf(td_max, s_key[j]);
+      t_new = fminf(t_new, blend ? tp : t_run);
+      float v = w;
+      if (__any_sync(0xffffffffu, v != 0.0f)) {
+        for (int off = 16; off > 0; off >>= 1)
+          v += __shfl_xor_sync(0xffffffffu, v, off);
+      }
+      if (lane == 0) s_part[warp * chunk + jj] = v;
+    }
+    c0 += sc0;
+    c1 += sc1;
+    c2 += sc2;
+    d_acc += sd;
+    w_acc += sw;
+    t_run = t_new;
+    done = done || (tp < kTEps);
+    __syncthreads();
+    if (tid < chunk) {
+      float s = 0.0f;
+      for (int wi = 0; wi < kWarps; ++wi) s += s_part[wi * chunk + tid];
+      s_key[i * chunk + tid] = s;  // this chunk's depths are no longer read
+    }
+  }
+  __syncthreads();
+
+  const size_t pix = static_cast<size_t>(slot) * kThreads + tid;
+  out_rgb[3 * pix] = c0;
+  out_rgb[3 * pix + 1] = c1;
+  out_rgb[3 * pix + 2] = c2;
+  out_trans[pix] = t_run;
+  out_depth[pix] = d_acc / fmaxf(w_acc, 1e-8f);
+  out_tdepth[pix] = td_max;
+  if (tid == 0) out_processed[slot] = min(n_run * chunk, count);
+  // Every input lane gets its contribution (0 where no chunk ran).
+  const int ran = n_run * chunk;
+  for (int s = tid; s < k_pad; s += kThreads) {
+    const int l = s_idx[s];
+    if (l < k) out_contrib[row + l] = s < ran ? s_key[s] : 0.0f;
+  }
+}
+
+}  // namespace
+
+// Plain C entry point (loaded with ctypes). Inputs are contiguous float32
+// (R, K, ...) bins plus origins (R, 2), counts and slot_active (R,) int32;
+// k_pad is the power of two >= max(K, chunk). Returns cudaGetLastError().
+extern "C" int raster_plan_fused(
+    const float* mean2d, const float* conic, const float* rgb,
+    const float* opacity, const float* depth, const float* origins,
+    const int* counts, const int* slot_active, float* out_rgb,
+    float* out_trans, float* out_depth, float* out_tdepth,
+    int* out_processed, float* out_contrib, int r, int k, int k_pad,
+    int chunk, void* stream) {
+  const size_t smem = (11 * static_cast<size_t>(k_pad) +
+                       static_cast<size_t>(kWarps) * chunk) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      raster_plan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (r > 0) {
+    raster_plan_kernel<<<r, kThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+        mean2d, conic, rgb, opacity, depth, origins, counts, slot_active,
+        out_rgb, out_trans, out_depth, out_tdepth, out_processed,
+        out_contrib, k, k_pad, chunk);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
