@@ -6,28 +6,49 @@
 Phases (each prints its own lines; a failed check exits non-zero):
 
 1. Device: the card's name and power limit, the kernels built from
-   ``src/repro_torch`` (nvcc for ``csrc/raster_plan.cu``, Triton for the
-   preprocess kernel) and their build times.
+   ``src/repro_torch`` (one nvcc per ``csrc/*.cu``, all started together;
+   Triton for the preprocess kernel) and their build times.
 2. Kernels vs their plain PyTorch versions on the card, at the main
-   path's shapes: the first key frame's real (R = 8160, K = 1024) bins
-   for the fused sort + blend kernel (as binned, with lanes shuffled per
-   slot, and with masked slots), all N Gaussians for the preprocess
-   kernel. Each kernel's median device time (profiler), its time with
-   the launch (CUDA events), the plain version's time, and the least time
-   the card could take for the work these inputs need (bytes over
-   3.35 TB/s or fp32 operations over 67 TFLOP/s).
+   paths' shapes: the first key frame's real (R = 8160, K = 1024) bins
+   for the fused sort + blend kernel (2a: as binned, with lanes shuffled
+   per slot, and with masked slots) and the tile raster kernel (2c:
+   against its plain version and bit for bit against the fused kernel),
+   all N Gaussians for the preprocess kernel (2b), and that frame's
+   (8160, 1024) depth keys with int32 ids for the tile sorter (2d, exact,
+   through its counting wrapper; also rows with ties, NaN, -0, +-inf,
+   K not a power of two and K = 1).
+   Each kernel's median device time (profiler), its time with the launch
+   (CUDA events), the plain version's time, a library call's time where
+   one computes the same function, and the least time the card could
+   take for the work these inputs need (bytes over 3.35 TB/s or fp32
+   operations over 67 TFLOP/s).
 3. The slice: a 10-frame dolly trajectory at 1920x1088 over a
    131,072-Gaussian structured scene (SH degree 3) with capacity 1024,
    chunk 64, window 5, TAIT, DPES, 32 LDU blocks — 2 key frames and 8
    warped frames through ``engine.render_trajectory``. Checks the launch
    counts, finite frames, the key frame against the plain raster, and
    every warped frame's PSNR (> 24 dB) against a full render of its pose.
+3b. Culling: the same trajectory at ``cull_threshold=2.0``; sparse frames
+   >= 30 dB against the unculled run, strictly fewer sort pairs over the
+   sparse frames, and pairs actually culled.
+4. Profile of one key and one warped frame (stage spans, idle share).
+5. Serve: ``StreamServer`` over two scenes padded into one 131,072
+   bucket (``structured_scene`` 131,072 and ``random_blob_scene``
+   100,000, SH degree 3) with impl "cuda", Poisson traffic of 6 streams
+   of 8-12 frames, elastic B in (2, 4) and R in (512, 1024, 2048).
+   Checks that every stream finishes, that a served session's frames
+   equal a solo render of its poses bit for bit, that the tile raster
+   kernel (not the fused one) rendered, that padding rows are invalid,
+   the bound on cache keys and the Chrome trace; prints latency,
+   frames/s, the B and R histories, first vs steady rounds, peak memory
+   and the device idle share of one profiled round.
 
 The last two lines are the kernels' JSON record and the device record.
 Needs a CUDA GPU; exits non-zero without one.
 """
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -37,6 +58,7 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # The card's published peaks (H100 SXM data sheet, 700 W).
@@ -120,7 +142,9 @@ def max_err(a, b):
 
 
 def phase_device():
-    from repro_torch.kernels import preprocess, raster_plan
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import (preprocess, raster_plan, raster_tile,
+                                     tile_sort)
     print("== phase 1: device", flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -131,11 +155,19 @@ def phase_device():
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
-    nvcc_s, report = raster_plan.build()
-    print(f"build raster_plan.cu (nvcc, sm_90a): {nvcc_s:.2f} s", flush=True)
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    mods = (raster_plan, raster_tile, tile_sort)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(mods)) as pool:
+        builds = [pool.submit(m.build) for m in mods]
+        results = [b.result() for b in builds]
+    print(f"build of {len(mods)} CUDA sources in parallel: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for mod, (nvcc_s, report) in zip(mods, results):
+        name = mod.__name__.rsplit(".", 1)[1]
+        print(f"build {name}.cu (nvcc, sm_90a): {nvcc_s:.2f} s", flush=True)
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
     triton_s = preprocess.build()
     print(f"build preprocess (triton): {triton_s:.2f} s", flush=True)
     return smi
@@ -149,7 +181,7 @@ def key_frame_bins(scene, cam, cfg):
     proj = preprocess(scene, cam, near=cfg.near)
     slots = intersect.take_tiles(intersect.make_tile_grid(cam),
                                  tplan.tile_ids)
-    bins, _, _ = pipeline.intersect_and_bin(proj, slots, tplan, cfg, None)
+    bins = pipeline.intersect_and_bin(proj, slots, tplan, cfg, None)[0]
     tg = binning.gather_tiles(proj, bins)
     return tplan, proj, bins, (tg.mean2d, tg.conic, tg.rgb, tg.opacity,
                                tg.depth, slots.origins, bins.count)
@@ -392,10 +424,150 @@ def phase_preprocess_kernel(scene, cam, flush):
                 library_ms=None)
 
 
+def phase_tile_raster_kernel(args, flush):
+    from repro_torch.kernels import raster_plan, raster_tile
+    print("== phase 2c: tile raster kernel vs its plain version and the "
+          "fused kernel", flush=True)
+    mean2d, conic, rgb, opacity, depth, origins, counts = args
+    r, k = opacity.shape
+    chunk = 64
+    got = raster_tile.raster_tile_cuda(*args, chunk=chunk)
+    work = {}
+    want = raster_plan.raster_chunked(*args, chunk=chunk, work=work)
+    torch.cuda.synchronize()
+    err = compare_raster(got, want, "tile kernel vs plain", chunk)
+    # Binning ordered each slot's lanes by (depth, id) and the fused
+    # kernel sorts by (depth, lane), so both blend one order with one
+    # blend loop (csrc/blend.cuh): the outputs must be bit-identical.
+    active = torch.ones((r,), dtype=torch.bool, device=opacity.device)
+    fused = raster_plan.raster_plan_cuda(*args, active, chunk=chunk)
+    again = raster_tile.raster_tile_cuda(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    names = ("rgb", "trans", "exp_depth", "trunc_depth", "processed",
+             "lane_contrib")
+    diff = {n: max_err(g.float(), f.float()) for n, g, f in
+            zip(names, got, fused)}
+    print(f"  tile vs fused kernel: largest difference {diff}", flush=True)
+    check(all(torch.equal(g, f) for g, f in zip(got, fused)),
+          "tile kernel bit-identical to the fused kernel on sorted bins")
+    check(all(torch.equal(g, a) for g, a in zip(got, again)),
+          "tile kernel repeats bit for bit")
+
+    run = lambda: raster_tile.raster_tile_cuda(  # noqa: E731
+        *args, chunk=chunk)
+    dev_ms = kernel_ms(run, "raster_tile_kernel", 20, flush)
+    launch_ms = time_ms(run, 20, flush)
+    plain_ms = time_ms(lambda: raster_plan.raster_chunked(
+        *args, chunk=chunk), 5, flush)
+    # As phase 2a counts it, less the slot mask: each real pair's 10
+    # floats, origins and counts read once, every output written once.
+    pairs = int(counts.sum())
+    nbytes = 4 * (pairs * 10 + r * 3 + r * 256 * 6 + r + r * k)
+    flops = work["evaluated"] * EVAL_FLOPS + work["blended"] * BLEND_FLOPS
+    bound_ms, bound_by = bound(nbytes, flops)
+    print(f"  kernel {dev_ms:.4f} ms device time (profiler, median of 20), "
+          f"{launch_ms:.4f} ms with its launch (CUDA events, median of 20), "
+          f"plain {plain_ms:.3f} ms (CUDA events, median of 5), bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.3f} GFLOP)", flush=True)
+    return dict(name="raster_tile", route="cuda",
+                source="src/repro_torch/csrc/raster_tile.cu",
+                replaces="src/repro/kernels/raster_tile.py:31",
+                max_abs_err=err, ms=dev_ms, ms_with_launch=launch_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
+def sort_rows(seed, t, k):
+    """(t, k) float32 keys with many ties, one NaN, -0, +0 and +-inf, and
+    int32 values, from a seed."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 6, size=(t, k)).astype(np.float32)
+    flat = keys.reshape(-1)
+    for i, v in enumerate((np.nan, -0.0, 0.0, np.inf, -np.inf, np.nan)):
+        flat[(i * 7919) % flat.size] = v
+    vals = rng.integers(-1000, 1000, size=(t, k)).astype(np.int32)
+    return (torch.from_numpy(keys).cuda(), torch.from_numpy(vals).cuda())
+
+
+def same_bits(a, b):
+    """Exact equality of float tensors bit for bit (NaN and -0 included)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def phase_tile_sort_kernel(args, flush):
+    from repro_torch.kernels import ref, tile_sort
+    print("== phase 2d: tile sort kernel vs its plain version", flush=True)
+    # Edge cases through the counting wrapper, exact against the stable
+    # plain sort: ties, NaN (last), -0 (tied with +0), +-inf, K not a
+    # power of two (the network pads to pow2(K)) and K = 1. The plain
+    # version runs on CPU copies of the inputs: that is the order the CPU
+    # tests hold against the reference's jnp.argsort(stable=True); the
+    # plain version on the card is printed beside it.
+    tile_sort.tile_sort.launches = 0
+    cases = [(33, 100), (5, 1), (4, 16), (7, 1000)]
+    for seed, (t, k) in enumerate(cases):
+        keys, vals = sort_rows(seed, t, k)
+        got = tile_sort.tile_sort(keys, vals)
+        on_card = ref.tile_sort_ref(keys, vals)
+        want = ref.tile_sort_ref(keys.cpu(), vals.cpu())
+        torch.cuda.synchronize()
+        print(f"  ({t}, {k}): plain version on the card equals it on the "
+              f"CPU: {same_bits(on_card[0].cpu(), want[0])} and "
+              f"{torch.equal(on_card[1].cpu(), want[1])}", flush=True)
+        check(same_bits(got[0].cpu(), want[0])
+              and torch.equal(got[1].cpu(), want[1]),
+              f"({t}, {k}) rows with ties, NaN, -0, +0, +-inf: the wrapper's "
+              "kernel equals the stable plain sort bit for bit")
+    check(tile_sort.tile_sort.launches == len(cases),
+          f"the wrapper launched the kernel once per call ({len(cases)})")
+
+    depth, counts = args[4], args[6]
+    t, k = depth.shape
+    lane = torch.arange(k, device=depth.device)
+    keys = torch.where(lane[None] < counts[:, None], depth,
+                       float("inf")).contiguous()
+    ids = lane[None].expand(t, k).to(torch.int32).contiguous()
+    got = tile_sort.tile_sort(keys, ids)
+    want = ref.tile_sort_ref(keys, ids)
+    torch.cuda.synchronize()
+    check(same_bits(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"({t}, {k}) depth keys with ids: kernel equals the stable "
+          "plain sort exactly")
+    tile_sort.tile_sort.launches = 0
+
+    def library():
+        order = torch.sort(keys, dim=1, stable=True)
+        return order.values, torch.take_along_dim(ids, order.indices, dim=1)
+
+    lib = library()
+    check(torch.equal(lib[1], got[1]), "torch.sort + gather agrees")
+    run = lambda: tile_sort.tile_sort_cuda(keys, ids)  # noqa: E731
+    dev_ms = kernel_ms(run, "tile_sort_kernel", 20, flush)
+    launch_ms = time_ms(run, 20, flush)
+    plain_ms = time_ms(lambda: ref.tile_sort_ref(keys, ids), 20, flush)
+    library_ms = time_ms(library, 20, flush)
+    # Keys and values read once and written once; one fp32 compare per
+    # element per level of a comparison sort (K log2 K per row).
+    nbytes = 16 * t * k
+    bound_ms, bound_by = bound(nbytes, t * k * math.log2(max(k, 2)))
+    print(f"  kernel {dev_ms:.4f} ms device time (profiler, median of 20), "
+          f"{launch_ms:.4f} ms with its launch (CUDA events, median of 20), "
+          f"plain {plain_ms:.4f} ms, torch.sort + gather {library_ms:.4f} ms "
+          f"(CUDA events, median of 20), bound {bound_ms:.5f} ms "
+          f"({bound_by}: {nbytes / 1e6:.1f} MB)", flush=True)
+    return dict(name="tile_sort", route="cuda",
+                source="src/repro_torch/csrc/tile_sort.cu",
+                replaces="src/repro/kernels/tile_sort.py:22",
+                max_abs_err=0.0, ms=dev_ms, ms_with_launch=launch_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+
+
 def phase_slice(scene, cam, poses, cfg, key_bins):
     from repro_torch.core import engine, load_balance, pipeline
     from repro_torch.core.metrics import psnr
-    from repro_torch.kernels import preprocess, raster_plan
+    from repro_torch.kernels import preprocess, raster_plan, tile_sort
     print("== phase 3: the slice (render_trajectory)", flush=True)
     print(f"  config: {WIDTH}x{HEIGHT} ({cam.num_tiles} tiles), N="
           f"{N_GAUSSIANS} structured_scene sh_degree 3, {N_FRAMES}-frame "
@@ -407,13 +579,15 @@ def phase_slice(scene, cam, poses, cfg, key_bins):
     torch.cuda.reset_peak_memory_stats()
     raster_plan.raster_plan_fused.launches = 0
     preprocess.preprocess_geom.launches = 0
+    tile_sort.tile_sort.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = engine.render_trajectory(scene, cam, poses, cfg)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = {"raster_plan_fused": raster_plan.raster_plan_fused.launches,
-                "preprocess_geom": preprocess.preprocess_geom.launches}
+                "preprocess_geom": preprocess.preprocess_geom.launches,
+                "tile_sort": tile_sort.tile_sort.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"  trajectory (first run, with first-use costs): "
           f"{total_s * 1e3:.1f} ms for {N_FRAMES} frames, "
@@ -485,7 +659,41 @@ def phase_slice(scene, cam, poses, cfg, key_bins):
         q = float(psnr(res.frames[f], full))
         print(f"  frame {f} PSNR vs full render: {q:.2f} dB", flush=True)
         check(q > 24.0, f"warped frame {f} PSNR > 24 dB")
-    return launches
+    return launches, res
+
+
+def phase_cull(scene, cam, poses, cfg, base):
+    from repro_torch.core import engine
+    from repro_torch.core.metrics import psnr
+    print("== phase 3b: contribution culling (cull_threshold=2.0)",
+          flush=True)
+    cull_cfg = dataclasses.replace(cfg, cull_threshold=2.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.render_trajectory(scene, cam, poses, cull_cfg)
+    torch.cuda.synchronize()
+    print(f"  trajectory: {(time.perf_counter() - t0) * 1e3:.1f} ms for "
+          f"{N_FRAMES} frames", flush=True)
+    is_full = res.records.is_full.tolist()
+    culled = res.records.culled_pairs.tolist()
+    sort_cull = res.records.sort_pairs.sum(dim=1).tolist()
+    sort_base = base.records.sort_pairs.sum(dim=1).tolist()
+    for f in range(N_FRAMES):
+        q = float(psnr(res.frames[f], base.frames[f]))
+        print(f"  frame {f} {'key' if is_full[f] else 'warped'}: culled "
+              f"{culled[f]}, sort pairs {sort_cull[f]} (unculled "
+              f"{sort_base[f]}), PSNR vs unculled {q:.2f} dB", flush=True)
+        if is_full[f]:
+            check(culled[f] == 0 and torch.equal(res.frames[f],
+                                                 base.frames[f]),
+                  f"key frame {f} untouched by culling")
+        else:
+            check(q >= 30.0, f"sparse frame {f} >= 30 dB against unculled")
+    sparse = [f for f in range(N_FRAMES) if not is_full[f]]
+    check(sum(sort_cull[f] for f in sparse) <
+          sum(sort_base[f] for f in sparse),
+          "strictly fewer sort pairs over the sparse frames")
+    check(sum(culled) > 0, f"pairs culled ({sum(culled)})")
 
 
 def phase_profile(scene, cam, poses, cfg):
@@ -533,6 +741,184 @@ def phase_profile(scene, cam, poses, cfg):
             print(f"    kernel {ms:8.3f} ms  {name[:90]}", flush=True)
 
 
+def device_split(events, wall_ms):
+    """(kernel ms, kernel launches, idle share) from profiler events."""
+    from torch.autograd import DeviceType
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("repro.")]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return busy_ms, len(kernels), 1 - busy_ms / wall_ms
+
+
+def phase_serve(cam, cfg):
+    """The serve loop at full width: two scenes in one bucket, Poisson
+    traffic, impl "cuda"."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import engine
+    from repro_torch.core.projection import preprocess as project
+    from repro_torch.kernels import (preprocess, raster_plan, raster_tile,
+                                     tile_sort)
+    from repro_torch.obs.trace import validate_chrome_trace
+    from repro_torch.scenes.synthetic import (random_blob_scene,
+                                              structured_scene)
+    from repro_torch.serve import (PoissonTraffic, SceneRegistry,
+                                   ServeConfig, StreamServer, TrafficConfig)
+    from repro_torch.serve.server import sample_trajectory
+    print("== phase 5: serve (StreamServer, impl cuda)", flush=True)
+    scfg = ServeConfig(chunk=4, b_buckets=(2, 4), r_buckets=(512, 1024, 2048),
+                       adapt_every=2, sim_latency=True, trace=True,
+                       scene_buckets=(65536, 131072), collect_frames=True)
+    scfg_cfg = dataclasses.replace(cfg, impl="cuda")
+    originals = [structured_scene(SEED, N_GAUSSIANS, sh_degree=3),
+                 random_blob_scene(SEED + 1, 100_000, sh_degree=3)]
+    reg = SceneRegistry(scfg.scene_buckets)
+    entries = [reg.register(s) for s in originals]
+    check(len({e.bucket for e in entries}) == 1,
+          f"both scenes padded into one bucket {entries[0].bucket}")
+    srv = StreamServer(reg, cam, scfg_cfg, scfg)
+    traffic = PoissonTraffic(TrafficConfig(n_streams=6, rate=3.0,
+                                           min_frames=8, max_frames=12,
+                                           seed=SEED, scenes=2))
+    print(f"  config: {scfg_cfg}", flush=True)
+    print(f"  serve: {scfg}", flush=True)
+
+    # Record each session, the poses it brought and, per round, which
+    # sessions rendered how many frames at which R.
+    sessions, chunks = [], []
+    attach = srv.try_attach
+
+    def recording_attach(poses, **kw):
+        sess = attach(poses, **kw)
+        if sess is not None:
+            sessions.append((sess, poses))
+        return sess
+
+    srv.try_attach = recording_attach
+    for bat in [srv.batcher_for(b) for b in reg.buckets_in_use()]:
+        build = bat.build
+
+        def recording_build(manager, build=build):
+            batch = build(manager)
+            chunks.append((srv.capacity, batch.sids, batch.counts.tolist()))
+            return batch
+
+        bat.build = recording_build
+    warm_s = srv.warmup()
+    raster_tile.raster_tile.launches = 0
+    raster_plan.raster_plan_fused.launches = 0
+    preprocess.preprocess_geom.launches = 0
+    tile_sort.tile_sort.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = srv.run(traffic, max_rounds=200)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = {"raster_tile": raster_tile.raster_tile.launches,
+                "raster_plan_fused": raster_plan.raster_plan_fused.launches,
+                "preprocess_geom": preprocess.preprocess_geom.launches,
+                "tile_sort": tile_sort.tile_sort.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  run: {total_s:.3f} s, {report['rounds']} rounds "
+          f"({report['busy_rounds']} busy), {report['frames']} frames, "
+          f"launches {launches}, peak memory {peak_gb:.2f} GB (warmup "
+          f"{warm_s * 1e3:.1f} ms: masked frames render nothing)",
+          flush=True)
+    check(report["streams_finished"] == 6 and not srv.manager.sessions,
+          "every stream finished (6 of 6)")
+    check(launches["raster_tile"] > 0 and launches["raster_plan_fused"] == 0,
+          "the tile raster kernel rendered, the fused kernel did not")
+    n_keys = report["cache"]["distinct_executables"]
+    check(n_keys <= len(scfg.b_buckets) * len(scfg.r_buckets),
+          f"{n_keys} cache keys <= {len(scfg.b_buckets)} x "
+          f"{len(scfg.r_buckets)}")
+    summary = validate_chrome_trace(srv.tracer.to_chrome())
+    check(summary["spans"] > 0,
+          f"Chrome trace validates ({summary['spans']} spans on "
+          f"{summary['tracks']} tracks)")
+    busy = [r for r in report["rounds_trace"] if r["frames"]]
+    round_ms = [r["render_seconds"] * 1e3 for r in busy]
+    print(f"  latency p50 {report['latency_p50_ms']} ms, p99 "
+          f"{report['latency_p99_ms']} ms per frame (enqueue -> round "
+          f"end); {report['frames_per_second']} frames/s over rendering "
+          f"rounds; slot utilization {report['slot_utilization']}",
+          flush=True)
+    print(f"  B history {report['slots_history']}, R history "
+          f"{report['capacity_history']}, cache keys "
+          f"{report['cache']['keys']}", flush=True)
+    print(f"  round ms {[round(t, 1) for t in round_ms]}; first busy round "
+          f"{round_ms[0]:.1f} ms, later rounds median "
+          f"{statistics.median(round_ms[1:]):.1f} ms", flush=True)
+    print(f"  per bucket {report['per_bucket']}", flush=True)
+    print(f"  simulated accelerator {report['sim']}", flush=True)
+
+    # Padding rows are invalid for every pose the blob scene was served at
+    # (sigmoid(-20) ~ 2e-9 fails the opacity cull in the Triton kernel).
+    blob = reg.get(entries[1].scene_id).scene
+    served_poses = [p for sess, poses in sessions
+                    if sess.scene_id == entries[1].scene_id for p in poses]
+    n_valid = sum(int(project(blob, cam.with_pose(torch.as_tensor(
+        p, device=cam.device)), near=cfg.near).valid[100_000:].sum())
+        for p in served_poses)
+    check(n_valid == 0, f"padding rows invalid at all {len(served_poses)} "
+          "poses the padded scene was served at")
+
+    # One session (the padded scene's, when it has one) against a solo
+    # render of its poses from the unpadded scene, at the R of each round.
+    pick = next((x for x in sessions if x[0].scene_id == entries[1].scene_id),
+                sessions[0])
+    sess, poses = pick
+    rs = [(r, counts[sids.index(sess.sid)]) for r, sids, counts in chunks
+          if sess.sid in sids and counts[sids.index(sess.sid)]]
+    scene = originals[[e.scene_id for e in entries].index(sess.scene_id)]
+    pose_t = torch.as_tensor(poses, device=cam.device)
+    if len({r for r, _ in rs}) == 1:
+        solo = engine.render_trajectory(
+            scene, cam, pose_t, dataclasses.replace(
+                scfg_cfg, rerender_capacity=rs[0][0]),
+            phase=sess.phase).frames
+    else:
+        carry, frames, f = engine.init_carry(cam, pose_t[0]), [], 0
+        for r, n in rs:
+            step_fn = engine.make_frame_step(scene, cam, dataclasses.replace(
+                scfg_cfg, rerender_capacity=r), sess.phase)
+            for _ in range(n):
+                carry, (rgb, _) = step_fn(carry, pose_t[f])
+                frames.append(rgb)
+                f += 1
+        solo = torch.stack(frames)
+    served = torch.cat(sess.frames)
+    check(torch.equal(served, solo),
+          f"session {sess.sid} ({len(poses)} frames, phase {sess.phase}, "
+          f"scene {sess.scene_id}, R per chunk {[r for r, _ in rs]}) equals "
+          f"a solo render from the unpadded scene bit for bit")
+
+    # The device idle share of one steady round, profiled after the
+    # measured run (the profiler's start and teardown would otherwise
+    # land between rounds and in the latencies): four more 8-frame
+    # streams, one round to bind them, then the profiled round.
+    rng = np.random.default_rng(SEED + 1)
+    for i in range(4):
+        srv.attach(sample_trajectory(rng, TrafficConfig(
+            min_frames=8, max_frames=8)), scene_id=entries[i % 2].scene_id)
+    srv.step()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = srv.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy_ms, n_kernels, idle = device_split(prof.events(), wall)
+    print(f"  profiled round ({info['frames']} frames of "
+          f"{info['bound_slots']} streams, R {info['capacity']}): wall "
+          f"{wall:.1f} ms, kernels {busy_ms:.1f} ms ({n_kernels} launches),"
+          f" device idle share {idle:.3f}", flush=True)
+    srv.run(max_rounds=srv.rounds + 10)
+    check(not srv.manager.sessions, "the profiled streams finished too")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA GPU (torch.cuda.is_available() is "
@@ -554,9 +940,22 @@ def main():
 
     key_bins = key_frame_bins(scene, cam, cfg)
     kernels = [phase_raster_kernel(key_bins[3], flush),
-               phase_preprocess_kernel(scene, cam, flush)]
-    launches = phase_slice(scene, cam, poses, cfg, key_bins)
+               phase_preprocess_kernel(scene, cam, flush),
+               phase_tile_raster_kernel(key_bins[3], flush),
+               phase_tile_sort_kernel(key_bins[3], flush)]
+    launches, base = phase_slice(scene, cam, poses, cfg, key_bins)
+    phase_cull(scene, cam, poses, cfg, base)
     phase_profile(scene, cam, poses, cfg)
+    del key_bins, base
+    serve_launches = phase_serve(cam, cfg)
+    # Each kernel's launches on its own main path: the trajectory for the
+    # fused kernel and preprocess, the serve loop for the tile raster
+    # kernel. The tile sorter's count is read after both runs; no render
+    # path sorts with it, as in the reference.
+    launches["raster_tile"] = serve_launches["raster_tile"]
+    launches["tile_sort"] += serve_launches["tile_sort"]
+    print(f"tile_sort launches on the main paths: trajectory + serve = "
+          f"{launches['tile_sort']}", flush=True)
     for k in kernels:
         k["launches"] = launches[k["name"]]
 

@@ -16,12 +16,27 @@ device launches — with float32 accumulators exactly as the reference's
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """A tile -> block schedule on the host (the accelerator simulator's
+    input, core/streaming.py)."""
+
+    block_of_tile: np.ndarray   # (T,) block id per tile (-1 = not scheduled)
+    order_in_block: np.ndarray  # (T,) execution position within its block
+    num_blocks: int
+
+    def tiles_of_block(self, b: int) -> np.ndarray:
+        ids = np.where(self.block_of_tile == b)[0]
+        return ids[np.argsort(self.order_in_block[ids], kind="stable")]
 
 
 def morton_rank(tiles_x: int, tiles_y: int, *, device="cuda") -> torch.Tensor:

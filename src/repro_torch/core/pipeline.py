@@ -19,7 +19,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.core import binning, intersect
+from repro_torch.core import binning, culling, intersect
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import warp as warp_mod
 from repro_torch.core.camera import TILE, Camera
@@ -39,8 +39,9 @@ class RenderConfig:
     intersect_method: str = "tait"      # "aabb" | "obb" | "tait" | "exact"
     capacity: int = 512                 # K: max pairs per tile
     chunk: int = 64                     # rasterizer gaussian-chunk
-    # Raster kernel (kernels/ops.py): "cuda_fused" | "torch_chunked" |
-    # "ref"; None picks ops.default_impl for the scene's device.
+    # Raster kernel (kernels/ops.py): "cuda_fused" | "cuda" |
+    # "torch_chunked" | "ref"; None picks ops.default_impl for the
+    # scene's device.
     impl: Optional[str] = None
     window: int = 5                     # full render every n-th frame
     use_mask: bool = True               # no-cumulative-error mask (Fig. 7)
@@ -52,18 +53,12 @@ class RenderConfig:
     min_coverage: float = warp_mod.MIN_COVERAGE
     rerender_capacity: Optional[int] = None  # R: static cap on plan slots
     ldu_blocks: int = 32                # B: parallel raster blocks (LDU)
-    # Temporal contribution culling (repro/core/culling.py) is not ported
-    # yet: only 0.0 (the pass absent) is accepted.
+    # Temporal contribution culling (core/culling.py): on sparse frames,
+    # drop pairs whose Gaussian contributed < cull_threshold blend mass at
+    # the last key frame, before binning. 0.0 leaves the pass out.
     cull_threshold: float = 0.0
     # Populate FrameRecord.lane_contrib / FrameState.contrib.
     record_contrib: bool = False
-
-    def __post_init__(self):
-        if self.cull_threshold > 0.0:
-            raise NotImplementedError(
-                "cull_threshold > 0: contribution culling (core/culling.py) "
-                "is not ported yet; see ROADMAP.md Queue 1, \"Culling + "
-                "multi-stream\"")
 
 
 def contrib_enabled(cfg: RenderConfig) -> bool:
@@ -121,13 +116,16 @@ def _tile_flag_to_pixels(flag: torch.Tensor, tiles_x: int, tiles_y: int):
 
 
 def intersect_and_bin(proj, slots, plan: TilePlan, cfg: RenderConfig,
-                      limit: Optional[torch.Tensor]):
-    """Plan-masked intersect + (R, K) binning over the active slots, a
-    block of slots at a time.
+                      limit: Optional[torch.Tensor],
+                      cull: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """Plan-masked intersect, contribution cull and (R, K) binning over
+    the active slots, a block of slots at a time.
 
+    ``cull`` is ``(prior, gate)`` (core/culling.py) or None for no cull.
     Inactive slots read as the reference computes them: no pairs, empty
     bins (indices 0..K-1, as top-k of an all-masked row gives). Returns
-    (bins, candidate_pairs, raw_slots).
+    (bins, candidate_pairs, raw_slots, culled_pairs, slot_active), the
+    last with fully-culled slots demoted.
     """
     n = proj.depth.shape[0]
     r, k = plan.num_slots, min(cfg.capacity, n)
@@ -140,6 +138,8 @@ def intersect_and_bin(proj, slots, plan: TilePlan, cfg: RenderConfig,
         capacity=cfg.capacity)
     raw_slots = torch.zeros((r,), **i32)
     candidate_pairs = torch.zeros((), **i32)
+    culled_pairs = torch.zeros((), **i32)
+    slot_active = plan.slot_active.clone()
     active = torch.nonzero(plan.slot_active).squeeze(1)
     rows = max(1, PAIR_BLOCK // max(n, 1))
     for r0 in range(0, active.shape[0], rows):
@@ -153,25 +153,39 @@ def intersect_and_bin(proj, slots, plan: TilePlan, cfg: RenderConfig,
                 mask = intersect.intersect(proj, block, cfg.intersect_method)
                 cand_src = mask
             candidate_pairs += cand_src.sum(dtype=torch.int32)
-            raw_slots[ids] = mask.sum(dim=0, dtype=torch.int32)
+        if cull is not None:
+            with annotate("repro.frame/cull"):
+                mask, slot_active[ids], culled = culling.cull_pairs(
+                    mask, slot_active[ids], plan.tile_ids[ids], cull[0],
+                    cull[1], cfg.cull_threshold)
+                culled_pairs += culled
+        raw_slots[ids] = mask.sum(dim=0, dtype=torch.int32)
         with annotate("repro.frame/bin"):
             part = binning.build_tile_bins(
                 mask, proj.depth, cfg.capacity,
                 depth_limit=None if limit is None else limit[ids])
             for field in ("indices", "valid", "count", "overflow"):
                 getattr(bins, field)[ids] = getattr(part, field)
-    return bins, candidate_pairs, raw_slots
+    return bins, candidate_pairs, raw_slots, culled_pairs, slot_active
 
 
 def render_planned_frame(scene, cam: Camera, plan: TilePlan,
                          cfg: RenderConfig, *,
-                         dpes_depth: Optional[torch.Tensor] = None
+                         dpes_depth: Optional[torch.Tensor] = None,
+                         cull_prior: Optional[torch.Tensor] = None,
+                         cull_gate: Optional[torch.Tensor] = None
                          ) -> Tuple[RenderOutput, TilePlan, torch.Tensor,
                                     PlanStats]:
     """The ONE shared stage pipeline every frame renders through.
 
     dpes_depth: optional (T,) per-tile early-stop depth (inf = no prior);
     gathered to the plan's slots before binning.
+
+    cull_prior: optional (N,) key-frame contribution prior; with
+    ``cfg.cull_threshold > 0`` low-contribution pairs are removed before
+    binning in slots passed by ``cull_gate`` ((T,) bool, default all
+    True), and fully-culled slots are demoted (core/culling.py). With the
+    default threshold 0.0 the pass is left out.
 
     Returns ``(out, plan, n_gaussians, stats)``: the full-frame
     RenderOutput (unplanned tiles empty), the plan with its LDU schedule
@@ -185,8 +199,14 @@ def render_planned_frame(scene, cam: Camera, plan: TilePlan,
     limit = None
     if dpes_depth is not None:
         limit = dpes_depth[plan.tile_ids.long()] * cfg.dpes_margin
-    bins, candidate_pairs, raw_slots = intersect_and_bin(proj, slots, plan,
-                                                          cfg, limit)
+    cull = None
+    if cfg.cull_threshold > 0.0 and cull_prior is not None:
+        gate = cull_gate if cull_gate is not None else torch.ones(
+            (cam.num_tiles,), dtype=torch.bool, device=cam.device)
+        cull = (cull_prior, gate)
+    bins, candidate_pairs, raw_slots, culled_pairs, slot_active = \
+        intersect_and_bin(proj, slots, plan, cfg, limit, cull)
+    plan = plan._replace(slot_active=slot_active)
     # LDU (paper Sec. V-B): post-DPES counts are the workload prediction.
     with annotate("repro.frame/ldu_schedule"):
         plan = plan_mod.schedule_plan(plan, bins.count, cfg.ldu_blocks)
@@ -203,10 +223,9 @@ def render_planned_frame(scene, cam: Camera, plan: TilePlan,
         considered[bins.indices[bins.valid].long()] = True
         gauss_prior = torch.where(considered, out.gauss_contrib,
                                   float("inf"))
-    zero = torch.zeros((), dtype=torch.int32, device=raw_slots.device)
     stats = PlanStats(candidate_pairs=candidate_pairs, raw_slots=raw_slots,
                       overflow_pairs=bins.overflow.sum(dtype=torch.int32),
-                      culled_pairs=zero, gauss_prior=gauss_prior)
+                      culled_pairs=culled_pairs, gauss_prior=gauss_prior)
     n_gaussians = proj.valid.sum(dtype=torch.int32)
     return out, plan, n_gaussians, stats
 
@@ -277,8 +296,11 @@ def render_sparse_frame(scene, ref_cam: Camera, tgt_cam: Camera,
                                      tgt_cam.tiles_y, cfg.rerender_capacity)
 
     limit = w.dpes_depth if cfg.use_dpes else None
+    gate = culling.warp_gate(w.valid_per_tile) \
+        if cfg.cull_threshold > 0.0 else None
     out, tplan, n_gaussians, stats = render_planned_frame(
-        scene, tgt_cam, tplan, cfg, dpes_depth=limit)
+        scene, tgt_cam, tplan, cfg, dpes_depth=limit,
+        cull_prior=state.contrib, cull_gate=gate)
     # Effective re-render set: plan slots that survived compaction.
     rerender = plan_mod.scatter_slots(tplan, tplan.slot_active,
                                       num_tiles=tgt_cam.num_tiles,

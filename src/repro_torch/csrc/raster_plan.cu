@@ -12,9 +12,10 @@
 //   2. the nine blend attributes are gathered into shared memory in
 //      sorted order (11 x 4 B x K_pad in all: 44 KiB at K_pad = 1024);
 //   3. front-to-back blend chunk by chunk with the reference semantics
-//      (alpha = min(o e^power, 0.99), alpha < 1/255 -> 0, sticky done at
-//      T < 1e-4); the CTA stops once every pixel is done
-//      (__syncthreads_or), as chunk_cond does in the Pallas kernel;
+//      (blend.cuh, shared with raster_tile.cu: alpha = min(o e^power,
+//      0.99), alpha < 1/255 -> 0, sticky done at T < 1e-4); the CTA stops
+//      once every pixel is done (__syncthreads_or), as chunk_cond does in
+//      the Pallas kernel;
 //   4. each lane's contribution (sum over the 256 pixels of alpha*T) is
 //      reduced in a fixed order (xor-shuffles in the warp, then the eight
 //      warp partials in order), so runs repeat bit for bit, and written
@@ -34,14 +35,12 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "blend.cuh"
+
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kThreads = kTile * kTile;
-constexpr int kWarps = kThreads / 32;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTEps = 1e-4f;
+using blend::kThreads;
+using blend::kWarps;
 
 __device__ __forceinline__ bool after(float ka, int ia, float kb, int ib) {
   return ka > kb || (ka == kb && ia > ib);
@@ -123,74 +122,15 @@ __global__ void __launch_bounds__(kThreads) raster_plan_kernel(
   }
 
   // ---- chunked front-to-back blend, one thread per pixel ----
-  const float px = (static_cast<float>(tid % kTile) + origins[2 * slot]) + 0.5f;
-  const float py =
-      (static_cast<float>(tid / kTile) + origins[2 * slot + 1]) + 0.5f;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  float t_run = 1.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
-  float d_acc = 0.0f, w_acc = 0.0f, td_max = 0.0f;
-  bool done = false;
+  const blend::Lanes lanes = {s_key, s_op, s_mx, s_my, s_ca,  s_cb,
+                              s_cc,  s_r,  s_g,  s_b,  s_part};
   const int used = active ? min((count + chunk - 1) / chunk, k_pad / chunk) : 0;
-  int n_run = 0;
-  for (int i = 0; i < used; ++i) {
-    if (!__syncthreads_or(!done)) break;
-    ++n_run;
-    float cp = 1.0f, t_new = t_run, tp = t_run;
-    float sc0 = 0.0f, sc1 = 0.0f, sc2 = 0.0f, sd = 0.0f, sw = 0.0f;
-    for (int jj = 0; jj < chunk; ++jj) {
-      const int j = i * chunk + jj;
-      const float dx = px - s_mx[j];
-      const float dy = py - s_my[j];
-      const float power =
-          -0.5f * (s_ca[j] * dx * dx + s_cc[j] * dy * dy) - s_cb[j] * dx * dy;
-      float alpha = s_op[j] * expf(power);
-      alpha = (alpha >= kAlphaMin) ? fminf(alpha, kAlphaMax) : 0.0f;
-      const float t_before = t_run * cp;
-      cp = cp * (1.0f - alpha);
-      tp = t_run * cp;
-      const bool blend = (tp >= kTEps) && !done;
-      const float w = blend ? alpha * t_before : 0.0f;
-      sc0 += w * s_r[j];
-      sc1 += w * s_g[j];
-      sc2 += w * s_b[j];
-      sd += w * s_key[j];
-      sw += w;
-      if (blend && alpha > 0.0f) td_max = fmaxf(td_max, s_key[j]);
-      t_new = fminf(t_new, blend ? tp : t_run);
-      float v = w;
-      if (__any_sync(0xffffffffu, v != 0.0f)) {
-        for (int off = 16; off > 0; off >>= 1)
-          v += __shfl_xor_sync(0xffffffffu, v, off);
-      }
-      if (lane == 0) s_part[warp * chunk + jj] = v;
-    }
-    c0 += sc0;
-    c1 += sc1;
-    c2 += sc2;
-    d_acc += sd;
-    w_acc += sw;
-    t_run = t_new;
-    done = done || (tp < kTEps);
-    __syncthreads();
-    if (tid < chunk) {
-      float s = 0.0f;
-      for (int wi = 0; wi < kWarps; ++wi) s += s_part[wi * chunk + tid];
-      s_key[i * chunk + tid] = s;  // this chunk's depths are no longer read
-    }
-  }
-  __syncthreads();
-
-  const size_t pix = static_cast<size_t>(slot) * kThreads + tid;
-  out_rgb[3 * pix] = c0;
-  out_rgb[3 * pix + 1] = c1;
-  out_rgb[3 * pix + 2] = c2;
-  out_trans[pix] = t_run;
-  out_depth[pix] = d_acc / fmaxf(w_acc, 1e-8f);
-  out_tdepth[pix] = td_max;
-  if (tid == 0) out_processed[slot] = min(n_run * chunk, count);
+  const float2 pc = blend::pixel_centre(origins, slot);
+  const blend::Pixel p = blend::blend_chunks(lanes, pc.x, pc.y, used, chunk);
+  blend::store_pixel(p, slot, count, chunk, out_rgb, out_trans, out_depth,
+                     out_tdepth, out_processed);
   // Every input lane gets its contribution (0 where no chunk ran).
-  const int ran = n_run * chunk;
+  const int ran = p.n_run * chunk;
   for (int s = tid; s < k_pad; s += kThreads) {
     const int l = s_idx[s];
     if (l < k) out_contrib[row + l] = s < ran ? s_key[s] : 0.0f;

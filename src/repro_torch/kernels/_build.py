@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use into ``build/repro_torch/lib<name>.so`` at the repository root
-(a directory ``.gitignore`` lists), for ``sm_90a`` only.
+(a directory ``.gitignore`` lists), for ``sm_90a`` only. A library is
+rebuilt when its source or any ``csrc/*.cuh`` header is newer.
 """
 from __future__ import annotations
 
@@ -55,6 +56,7 @@ def compile_library(name: str) -> Tuple[float, str]:
 def load_library(name: str) -> ctypes.CDLL:
     """Load ``lib<name>.so``, compiling it first if missing or stale."""
     src, out = CSRC / f"{name}.cu", library_path(name)
-    if not out.exists() or out.stat().st_mtime < src.stat().st_mtime:
+    newest = max(p.stat().st_mtime for p in (src, *CSRC.glob("*.cuh")))
+    if not out.exists() or out.stat().st_mtime < newest:
         compile_library(name)
     return ctypes.CDLL(str(out))

@@ -6,6 +6,10 @@
                       (kernels/raster_plan.py, csrc/raster_plan.cu) — the
                       default on CUDA tensors; on CPU tensors its plain
                       version runs (sort, chunked blend, unscramble)
+  - "cuda"          : the blend over depth-sorted bins in CUDA
+                      (kernels/raster_tile.py, csrc/raster_tile.cu; the
+                      port of the reference's "pallas"); on CPU tensors
+                      its plain version runs (``raster_chunked``)
   - "torch_chunked" : the chunked blend over depth-sorted bins in torch
                       (the port of ``_raster_tile_chunked_jnp``, kept in
                       kernels/raster_plan.py beside the kernel whose blend
@@ -23,10 +27,11 @@ from repro_torch.kernels import ref as ref_kernels
 from repro_torch.kernels.preprocess import pallas_layout
 from repro_torch.kernels.preprocess import preprocess_geom as _preprocess
 from repro_torch.kernels.raster_plan import raster_chunked, raster_plan_fused
+from repro_torch.kernels.raster_tile import raster_tile
 from repro_torch.obs.trace import annotate
 
 # Valid ``impl`` names for raster_tiles, in preference order.
-RASTER_IMPLS = ("cuda_fused", "torch_chunked", "ref")
+RASTER_IMPLS = ("cuda_fused", "cuda", "torch_chunked", "ref")
 
 
 def default_impl(device) -> str:
@@ -58,6 +63,9 @@ def raster_tiles(mean2d, conic, rgb, opacity, depth, origins, counts, *,
             return raster_plan_fused(mean2d, conic, rgb, opacity, depth,
                                      origins, counts, slot_active,
                                      chunk=chunk, tile=tile)
+        if impl == "cuda":
+            return raster_tile(mean2d, conic, rgb, opacity, depth, origins,
+                               counts, chunk=chunk, tile=tile)
         if impl == "torch_chunked":
             return raster_chunked(mean2d, conic, rgb, opacity, depth,
                                   origins, counts, chunk=chunk, tile=tile)

@@ -36,7 +36,7 @@ from repro_torch.kernels.ref import T_EPS, alpha_of, pixel_coords
 # Elements of one (rows, pixels, chunk) blend temporary in raster_chunked.
 _CHUNK_BLOCK = 1 << 24
 # Shared memory a Hopper CTA can use (bytes).
-_MAX_SMEM = 232448
+MAX_SMEM = 232448
 
 
 def pow2_at_least(n: int) -> int:
@@ -186,7 +186,9 @@ def raster_plan_torch(mean2d, conic, rgb, opacity, depth, origins, counts,
     return rgb_o, trans_o, depth_o, tdepth_o, processed, contrib
 
 
-def _check_cuda_inputs(r, k, tensors):
+def check_cuda_bins(r, k, tensors):
+    """Raise unless each (R, K, ...) bin tensor has its shape, is float32,
+    contiguous and on opacity's device."""
     shapes = {"mean2d": (r, k, 2), "conic": (r, k, 3), "rgb": (r, k, 3),
               "opacity": (r, k), "depth": (r, k), "origins": (r, 2)}
     dev = tensors["opacity"].device
@@ -220,7 +222,7 @@ def raster_plan_cuda(mean2d, conic, rgb, opacity, depth, origins, counts,
         raise ValueError(f"chunk={chunk} exceeds the CTA's {TILE * TILE} "
                          "threads")
     r, k = opacity.shape
-    _check_cuda_inputs(r, k, dict(mean2d=mean2d, conic=conic, rgb=rgb,
+    check_cuda_bins(r, k, dict(mean2d=mean2d, conic=conic, rgb=rgb,
                                   opacity=opacity, depth=depth,
                                   origins=origins))
     dev = opacity.device
@@ -228,9 +230,9 @@ def raster_plan_cuda(mean2d, conic, rgb, opacity, depth, origins, counts,
         raise ValueError("the fused raster kernel needs CUDA tensors")
     k_pad = pow2_at_least(max(k, chunk))
     smem = (11 * k_pad + 8 * chunk) * 4
-    if smem > _MAX_SMEM:
+    if smem > MAX_SMEM:
         raise ValueError(f"K={k} needs {smem} B of shared memory per CTA; "
-                         f"the card offers {_MAX_SMEM}")
+                         f"the card offers {MAX_SMEM}")
     counts_i = counts.to(device=dev, dtype=torch.int32).contiguous()
     active_i = slot_active.to(device=dev, dtype=torch.int32).contiguous()
     f32 = dict(dtype=torch.float32, device=dev)

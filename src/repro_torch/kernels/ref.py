@@ -116,3 +116,12 @@ def preprocess_geom_ref(means, log_scales, quats, opacity, w2c,
     return pallas_layout(preprocess_geom_torch(
         means, log_scales, quats, opacity, w2c, intrin, near=near,
         frustum_margin=frustum_margin, dilation=dilation))
+
+
+def tile_sort_ref(keys: torch.Tensor, values: torch.Tensor):
+    """Oracle for the per-tile bitonic sorter: ascending stable sort of
+    each row. keys (T, K) float, values (T, K) int32. Returns sorted
+    (keys, values)."""
+    order = torch.argsort(keys, dim=-1, stable=True)
+    return (torch.take_along_dim(keys, order, dim=-1),
+            torch.take_along_dim(values, order, dim=-1))

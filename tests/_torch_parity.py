@@ -53,3 +53,21 @@ def assert_close(got, want, *, atol=0.0, rtol=0.0, err_msg=""):
 
 def assert_equal(got, want, err_msg=""):
     np.testing.assert_array_equal(np_(got), np_(want), err_msg=err_msg)
+
+
+def assert_records(got, want):
+    """FrameRecord (or stacked FrameRecord) fields: exact, except the
+    per-lane contributions (rtol 1e-4, sums over 256 pixels in another
+    order); None fields must be None on both sides."""
+    assert got._fields == want._fields
+    for name in want._fields:
+        w = getattr(want, name)
+        g = getattr(got, name)
+        if w is None:
+            assert g is None, name
+            continue
+        if name == "lane_contrib":
+            assert_close(g, w, rtol=1e-4, atol=1e-6, err_msg=name)
+            continue
+        assert tuple(g.shape) == tuple(np.asarray(w).shape), name
+        assert_equal(g, w, err_msg=name)

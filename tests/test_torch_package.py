@@ -59,12 +59,39 @@ def test_no_jax_or_reference_imports(path):
         assert top not in ("jax", "jaxlib", "repro"), (path, name)
 
 
+def _cpu_scene():
+    from repro_torch.scenes import synthetic
+    return synthetic.structured_scene(0, 64, device="cpu")
+
+
+def _cpu_camera():
+    from repro_torch.core import camera
+    return camera.make_camera(np.eye(4, dtype=np.float32), width=32,
+                              height=32, device="cpu")
+
+
 def _default_device_calls():
-    from repro_torch import interop
-    from repro_torch.core import camera, load_balance, plan
+    from repro_torch import interop, serve
+    from repro_torch.core import camera, engine, load_balance, plan
+    from repro_torch.core.pipeline import RenderConfig
     from repro_torch.scenes import synthetic, trajectory
     eye4 = np.eye(4, dtype=np.float32)
+    poses = torch.eye(4).expand(2, 3, 4, 4)
     return {
+        "render_streams": lambda: engine.render_streams(
+            _cpu_scene(), camera.make_camera(eye4, width=32, height=32),
+            poses, RenderConfig()),
+        "init_stream_carries": lambda: engine.init_stream_carries(
+            camera.make_camera(eye4, width=32, height=32), poses),
+        "stream_phases": lambda: engine.stream_phases(3, 5),
+        "SceneRegistry.register": lambda: serve.SceneRegistry(
+            (256,)).register(_cpu_scene()),
+        "pad_scene": lambda: serve.pad_scene(_cpu_scene(), 256),
+        "StreamServer": lambda: serve.StreamServer(
+            _cpu_scene(), _cpu_camera(), RenderConfig()),
+        "StreamServer(default-device scene)": lambda: serve.StreamServer(
+            synthetic.structured_scene(0, 64), _cpu_camera(),
+            RenderConfig()),
         "make_camera": lambda: camera.make_camera(eye4, width=32, height=32),
         "look_at": lambda: camera.look_at((0, 0, -1), (0, 0, 1)),
         "structured_scene": lambda: synthetic.structured_scene(0, 64),

@@ -29,21 +29,6 @@ def _cfgs(impl, **kw):
             tpipe.RenderConfig(impl=impl, **base))
 
 
-def _assert_records(got, want):
-    assert got._fields == want._fields
-    for name in want._fields:
-        w = getattr(want, name)
-        g = getattr(got, name)
-        if w is None:
-            assert g is None, name
-            continue
-        if name == "lane_contrib":
-            P.assert_close(g, w, rtol=1e-4, atol=1e-6, err_msg=name)
-            continue
-        assert tuple(g.shape) == tuple(np.asarray(w).shape), name
-        P.assert_equal(g, w, err_msg=name)
-
-
 def _poses(n):
     return dolly_trajectory(n, start=(0.0, -0.3, -2.0),
                             target=(0.0, 0.0, 6.0))
@@ -68,7 +53,7 @@ def test_full_frame_matches_reference(small_scene, small_cam, key_frames,
         P.assert_close(getattr(out, name), getattr(jout, name), atol=ATOL,
                        err_msg=name)
     P.assert_equal(out.processed_pairs, jout.processed_pairs)
-    _assert_records(rec, jrec)
+    P.assert_records(rec, jrec)
     P.assert_equal(state.source_mask, jstate.source_mask)
     assert int(state.frame_idx) == int(jstate.frame_idx) == 0
     assert state.contrib is None
@@ -90,7 +75,7 @@ def test_sparse_frame_matches_reference(small_scene, small_cam, key_frames,
         P.scene(small_scene), P.camera(ref_cam), P.camera(tgt_cam),
         P.frame_state(jstate), tcfg)
     P.assert_close(rgb, jrgb, atol=ATOL)
-    _assert_records(rec, jrec)
+    P.assert_records(rec, jrec)
     for name in ("rgb", "exp_depth", "trunc_depth"):
         P.assert_close(getattr(new, name), getattr(jnew, name), atol=ATOL,
                        rtol=1e-6, err_msg=name)
@@ -115,7 +100,7 @@ def test_trajectory_matches_reference(small_scene, small_cam, impl):
     assert len(got.records) == 6
     assert got.records.is_full.tolist() == [True, False, False, True,
                                             False, False]
-    _assert_records(got.records.stacked, want.records.stacked)
+    P.assert_records(got.records.stacked, want.records.stacked)
 
 
 def test_trajectory_py_matches_engine(small_scene, small_cam):
@@ -127,7 +112,7 @@ def test_trajectory_py_matches_engine(small_scene, small_cam):
     a = tpipe.render_trajectory_py(scene, cam, poses, tcfg, keep_states=True)
     b = tpipe.render_trajectory(scene, cam, poses, tcfg, keep_states=True)
     P.assert_equal(a.frames, b.frames)
-    _assert_records(a.records.stacked, b.records.stacked)
+    P.assert_records(a.records.stacked, b.records.stacked)
     P.assert_equal(a.states.frame_idx, [0, 1, 2, 3, 4])
     P.assert_equal(a.states.source_mask, b.states.source_mask)
     rec2 = b.records[2]
@@ -154,13 +139,23 @@ def test_record_contrib_matches_reference(small_scene, small_cam):
     got = tpipe.render_trajectory_py(P.scene(small_scene),
                                      P.camera(small_cam), P.tensor(poses),
                                      tcfg, keep_states=True)
-    _assert_records(got.records.stacked, want.records.stacked)
+    P.assert_records(got.records.stacked, want.records.stacked)
     prior, jprior = P.np_(got.states.contrib), np.asarray(want.states.contrib)
     P.assert_equal(np.isinf(prior), np.isinf(jprior))
     fin = np.isfinite(jprior)
     P.assert_close(prior[fin], jprior[fin], rtol=1e-4, atol=1e-5)
 
 
-def test_culling_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="culling"):
-        tpipe.RenderConfig(cull_threshold=0.05)
+def test_culling_not_ported_yet(small_scene, small_cam):
+    """Culling is ported now: a nonzero threshold is accepted and culls
+    pairs on a sparse frame warped from a key frame's prior
+    (test_torch_culling.py holds it against the reference)."""
+    _, tcfg = _cfgs("torch_chunked", cull_threshold=0.05)
+    poses = _poses(2)
+    scene = P.scene(small_scene)
+    ref_cam = P.camera(small_cam.with_pose(poses[0]))
+    _, state, rec = tpipe.render_full_frame(scene, ref_cam, tcfg)
+    assert int(rec.culled_pairs) == 0 and state.contrib is not None
+    _, _, rec = tpipe.render_sparse_frame(
+        scene, ref_cam, P.camera(small_cam.with_pose(poses[1])), state, tcfg)
+    assert int(rec.culled_pairs) > 0

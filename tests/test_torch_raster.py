@@ -1,7 +1,7 @@
 """Port parity: the raster impls (the fused kernel's plain version, the
-chunked blend, the sequential oracle) against the JAX reference's
-``ref``, ``jnp_chunked`` and ``pallas_fused`` (interpret mode) on the
-CPU. Images agree to 2e-5 (the reference suite's fused-vs-jnp pin,
+tile kernel's plain version, the chunked blend, the sequential oracle)
+against the JAX reference's ``ref``, ``jnp_chunked``, ``pallas_fused``
+and ``pallas`` (both interpret mode) on the CPU. Images agree to 2e-5 (the reference suite's fused-vs-jnp pin,
 tests/test_raster_plan.py), processed pairs exactly, lane contributions
 to rtol 1e-4 (sums over 256 pixels in another order)."""
 import jax.numpy as jnp
@@ -23,13 +23,14 @@ from repro_torch.core import projection as tproj
 from repro_torch.core import raster as traster
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import raster_plan as trp
+from repro_torch.kernels import raster_tile as trt
 from repro_torch.kernels import ref as tref
 
 ATOL = 2e-5
 CONTRIB_RTOL = 1e-4
 
 IMPL_PAIRS = [("ref", "ref"), ("torch_chunked", "jnp_chunked"),
-              ("cuda_fused", "pallas_fused")]
+              ("cuda_fused", "pallas_fused"), ("cuda", "pallas")]
 
 
 def _tile_inputs(scene, cam, capacity):
@@ -158,7 +159,8 @@ def test_masked_slots_render_empty(tile_inputs):
         P.assert_equal(a, b)
 
 
-@pytest.mark.parametrize("impl", ["cuda_fused", "torch_chunked", "ref"])
+@pytest.mark.parametrize("impl", ["cuda_fused", "cuda", "torch_chunked",
+                                  "ref"])
 def test_empty_input_renders_background(impl):
     t, k = 6, 64
     z = torch.zeros
@@ -175,6 +177,8 @@ def test_shape_errors_mirror_reference(tile_inputs):
         tops.raster_tiles(*args, impl="cuda_fused", chunk=48)
     with pytest.raises(ValueError, match="multiple of chunk"):
         tops.raster_tiles(*args, impl="torch_chunked", chunk=64)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        tops.raster_tiles(*args, impl="cuda", chunk=64)
     with pytest.raises(ValueError, match="unknown impl"):
         tops.raster_tiles(*args, impl="pallas", chunk=32)
 
@@ -182,13 +186,19 @@ def test_shape_errors_mirror_reference(tile_inputs):
 def test_default_impl_and_cpu_wrapper():
     assert tops.default_impl("cpu") == "torch_chunked"
     assert tops.default_impl("cuda") == "cuda_fused"
-    assert tops.RASTER_IMPLS == ("cuda_fused", "torch_chunked", "ref")
+    assert tops.RASTER_IMPLS == ("cuda_fused", "cuda", "torch_chunked",
+                                 "ref")
     before = trp.raster_plan_fused.launches
     z = torch.zeros
     trp.raster_plan_fused(z((2, 16, 2)), z((2, 16, 3)), z((2, 16, 3)),
                           z((2, 16)), z((2, 16)), z((2, 2)),
                           z((2,), dtype=torch.int32), chunk=16)
     assert trp.raster_plan_fused.launches == before  # CPU: plain version
+    before = trt.raster_tile.launches
+    trt.raster_tile(z((2, 16, 2)), z((2, 16, 3)), z((2, 16, 3)), z((2, 16)),
+                    z((2, 16)), z((2, 2)), z((2,), dtype=torch.int32),
+                    chunk=16)
+    assert trt.raster_tile.launches == before
 
 
 def test_untile_tile_view(small_cam):
