@@ -12,11 +12,15 @@ Phases (each prints its own lines; a failed check exits non-zero):
    paths' shapes: the first key frame's real (R = 8160, K = 1024) bins
    for the fused sort + blend kernel (2a: as binned, with lanes shuffled
    per slot, and with masked slots) and the tile raster kernel (2c:
-   against its plain version and bit for bit against the fused kernel),
-   all N Gaussians for the preprocess kernel (2b), and that frame's
-   (8160, 1024) depth keys with int32 ids for the tile sorter (2d, exact,
-   through its counting wrapper; also rows with ties, NaN, -0, +-inf,
-   K not a power of two and K = 1).
+   against its plain version and bit for bit against the fused kernel,
+   at chunk 64 and also 16 and 256, and at chunk 48 on the first 960
+   lanes against the plain version; its static SASS by class and the
+   (pixel, lane) evaluations it runs), all N Gaussians for the
+   preprocess kernel (2b), and that frame's (8160, 1024) depth keys with
+   int32 ids for the tile sorter (2d, exact, through its counting
+   wrapper; also rows with ties, NaN, -0, +-inf, K not a power of two,
+   K = 1, 257, 4096 and 16384; each case's layout and its network's
+   sweeps per level: register, warp shuffle, shared memory).
    Each kernel's median device time (profiler), its time with the launch
    (CUDA events), the plain version's time, a library call's time where
    one computes the same function, and the least time the card could
@@ -118,17 +122,23 @@ def kernel_ms(fn, kernel, runs, flush):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if e.device_type == DeviceType.CUDA and kernel in e.name]
-    check(len(times) == runs,
-          f"profiler saw {len(times)} launches of {kernel} ({runs} made)")
-    return statistics.median(times)
+    # The trace now and then drops a launch's record; such a trace is
+    # taken again, and the median is read only from one that holds all.
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if len(times) == runs:
+            return statistics.median(times)
+        print(f"  profiler trace {attempt + 1} holds {len(times)} of "
+              f"{runs} launches of {kernel}", flush=True)
+    raise SystemExit(f"FAILED: no profiler trace of 3 held all {runs} "
+                     f"launches of {kernel}")
 
 
 def bound(nbytes, flops):
@@ -424,6 +434,52 @@ def phase_preprocess_kernel(scene, cam, flush):
                 library_ms=None)
 
 
+# SASS opcodes by the unit that issues them (the rest: integer, control).
+SASS_CLASSES = {
+    "shared load": ("LDS",), "shared store": ("STS",),
+    "shuffle": ("SHFL",), "vote": ("VOTE", "VOTEU"),
+    "fp32": ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FCHK"),
+    "mufu": ("MUFU",), "barrier": ("BAR",), "global": ("LDG", "STG")}
+
+
+def sass(lib, kernel):
+    """The SASS instructions (``cuobjdump -sass``) of the kernel in the
+    library file ``lib`` whose mangled name contains ``kernel``."""
+    from repro_torch.kernels import _build
+    text = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    out, inside = [], False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside and line.lstrip().startswith("/*") and ";" in line:
+            out.append(line.split("*/", 1)[1].split(";", 1)[0].strip())
+    return out
+
+
+def opcode_mix(lib, kernel):
+    """Static SASS opcode counts (the opcode before its first modifier:
+    ``LDS``, ``SHFL``, ...) of a kernel: one count per instruction in the
+    binary, not per execution."""
+    mix = {}
+    for ins in sass(lib, kernel):
+        if ins.startswith("@"):                 # predicate guard
+            ins = ins.split(None, 1)[1]
+        op = ins.split(None, 1)[0].split(".", 1)[0]
+        mix[op] = mix.get(op, 0) + 1
+    return mix
+
+
+def sass_classes(lib, kernel):
+    """Static SASS instruction counts of ``kernel`` by class."""
+    from repro_torch.kernels import _build
+    mix = opcode_mix(_build.library_path(lib), kernel)
+    out = {c: sum(mix.get(op, 0) for op in ops)
+           for c, ops in SASS_CLASSES.items()}
+    out["other"] = sum(mix.values()) - sum(out.values())
+    return out
+
+
 def phase_tile_raster_kernel(args, flush):
     from repro_torch.kernels import raster_plan, raster_tile
     print("== phase 2c: tile raster kernel vs its plain version and the "
@@ -452,6 +508,32 @@ def phase_tile_raster_kernel(args, flush):
           "tile kernel bit-identical to the fused kernel on sorted bins")
     check(all(torch.equal(g, a) for g, a in zip(got, again)),
           "tile kernel repeats bit for bit")
+    # Other chunks: 16 (no lane in a full group of the blend's transposed
+    # reduction), 256, and 48 on the first 960 lanes (one group of 32, 16
+    # lanes one by one); the fused kernel takes power-of-two chunks only.
+    for c in (16, 256):
+        tile_c = raster_tile.raster_tile_cuda(*args, chunk=c)
+        fused_c = raster_plan.raster_plan_cuda(*args, active, chunk=c)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, f) for g, f in zip(tile_c, fused_c)),
+              f"chunk {c}: tile kernel bit-identical to the fused kernel")
+    cut = tuple(x[:, :960].contiguous() for x in args[:5]) \
+        + (origins, counts.clamp(max=960))
+    compare_raster(raster_tile.raster_tile_cuda(*cut, chunk=48),
+                   raster_plan.raster_chunked(*cut, chunk=48),
+                   "K 960, chunk 48: tile kernel vs plain", 48)
+    print(f"  raster_tile_kernel static SASS by class: "
+          f"{sass_classes('raster_tile', 'raster_tile_kernel')}", flush=True)
+    # A warp runs all 32 x chunk (pixel, lane) pairs of each chunk it
+    # does not skip; the plain version's done flags count those chunks.
+    # Without the warp skip every warp would run each chunk its CTA runs:
+    # ceil(processed / chunk) of them.
+    lanes_run = int(((got[4] + chunk - 1) // chunk).sum()) * chunk
+    print(f"  (pixel, lane) evaluations the warps run: "
+          f"{work['warp_chunks'] * 32 * chunk} ({work['warp_chunks']} "
+          f"warp chunks, counted by the plain version's done flags); "
+          f"{lanes_run * 256} without the warp skip; the function needs "
+          f"{work['evaluated']}", flush=True)
 
     run = lambda: raster_tile.raster_tile_cuda(  # noqa: E731
         *args, chunk=chunk)
@@ -495,6 +577,15 @@ def same_bits(a, b):
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+def sweep_levels(k):
+    """Sweeps of the tile sorter's network per level for rows of k keys."""
+    from repro_torch.kernels import tile_sort
+    levels = {}
+    for _, _, level in tile_sort.network_schedule(k):
+        levels[level] = levels.get(level, 0) + 1
+    return levels
+
+
 def phase_tile_sort_kernel(args, flush):
     from repro_torch.kernels import ref, tile_sort
     print("== phase 2d: tile sort kernel vs its plain version", flush=True)
@@ -505,8 +596,14 @@ def phase_tile_sort_kernel(args, flush):
     # tests hold against the reference's jnp.argsort(stable=True); the
     # plain version on the card is printed beside it.
     tile_sort.tile_sort.launches = 0
-    cases = [(33, 100), (5, 1), (4, 16), (7, 1000)]
+    cases = [(33, 100), (5, 1), (4, 16), (7, 1000), (64, 4096), (9, 257),
+             (2, 16384)]
     for seed, (t, k) in enumerate(cases):
+        lay = tile_sort.sort_layout(k)
+        print(f"  ({t}, {k}): {lay.n} items a row, {lay.e} a thread, "
+              f"{lay.rows_per_cta} row(s) a CTA of {lay.threads} threads, "
+              f"{lay.smem} B shared; sweeps per level {sweep_levels(k)}",
+              flush=True)
         keys, vals = sort_rows(seed, t, k)
         got = tile_sort.tile_sort(keys, vals)
         on_card = ref.tile_sort_ref(keys, vals)
@@ -531,6 +628,8 @@ def phase_tile_sort_kernel(args, flush):
     got = tile_sort.tile_sort(keys, ids)
     want = ref.tile_sort_ref(keys, ids)
     torch.cuda.synchronize()
+    print(f"  ({t}, {k}) key frame rows: {tile_sort.sort_layout(k)}; "
+          f"sweeps per level {sweep_levels(k)}", flush=True)
     check(same_bits(got[0], want[0]) and torch.equal(got[1], want[1]),
           f"({t}, {k}) depth keys with ids: kernel equals the stable "
           "plain sort exactly")

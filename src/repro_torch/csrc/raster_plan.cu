@@ -9,25 +9,27 @@
 //      original lane index riding the compare-exchanges as the payload;
 //      only the first pow2(count) lanes take part (the padding tail is
 //      already in order);
-//   2. the nine blend attributes are gathered into shared memory in
-//      sorted order (11 x 4 B x K_pad in all: 44 KiB at K_pad = 1024);
+//   2. the blend records are gathered into shared memory in sorted order,
+//      packed as blend.cuh lays them out (with the sort's keys and lanes,
+//      12 x 4 B x K_pad in all: 48 KiB at K_pad = 1024);
 //   3. front-to-back blend chunk by chunk with the reference semantics
 //      (blend.cuh, shared with raster_tile.cu: alpha = min(o e^power,
 //      0.99), alpha < 1/255 -> 0, sticky done at T < 1e-4); the CTA stops
 //      once every pixel is done (__syncthreads_or), as chunk_cond does in
 //      the Pallas kernel;
 //   4. each lane's contribution (sum over the 256 pixels of alpha*T) is
-//      reduced in a fixed order (xor-shuffles in the warp, then the eight
-//      warp partials in order), so runs repeat bit for bit, and written
-//      straight to its INPUT lane through the payload.
+//      reduced in a fixed order (blend.cuh: the warp's xor-butterfly tree,
+//      then the eight warp partials in order), so runs repeat bit for
+//      bit, and written straight to its INPUT lane through the payload.
 //
 // What bounds it: the blend's arithmetic (about 16 flops and one expf per
 // pixel and lane reached before the pixel is done, 17 more where the
 // lane blends); bytes are small (each real lane's 40 B record is read
-// once). The design keeps every lane in
-// shared memory from sort to blend, reads it there as a broadcast (all
-// threads of a warp read the same address), and skips inactive or empty
-// slots before the sort.
+// once). The design keeps every lane in shared memory from sort to blend,
+// reads it there as three broadcast vector loads (all threads of a warp
+// read the same address), and skips inactive or empty slots before the
+// sort. The sort (55 barrier-separated sweeps at K_pad = 1024) is
+// unchanged here; bitonic.cuh's register network is its replacement.
 //
 // Built with -fmad=false so that the per-pixel arithmetic rounds as the
 // plain PyTorch version's separate operations do.
@@ -41,12 +43,16 @@ namespace {
 
 using blend::kThreads;
 using blend::kWarps;
+// CTAs a SM must fit: caps a thread at 64 registers (a few spill), so
+// that the 32 lane weights blend.cuh keeps in registers do not cost the
+// occupancy the barrier-bound sort needs.
+constexpr int kMinCtas = 4;
 
 __device__ __forceinline__ bool after(float ka, int ia, float kb, int ib) {
   return ka > kb || (ka == kb && ia > ib);
 }
 
-__global__ void __launch_bounds__(kThreads) raster_plan_kernel(
+__global__ void __launch_bounds__(kThreads, kMinCtas) raster_plan_kernel(
     const float* __restrict__ mean2d, const float* __restrict__ conic,
     const float* __restrict__ rgb, const float* __restrict__ opacity,
     const float* __restrict__ depth, const float* __restrict__ origins,
@@ -56,18 +62,9 @@ __global__ void __launch_bounds__(kThreads) raster_plan_kernel(
     int* __restrict__ out_processed, float* __restrict__ out_contrib,
     int k, int k_pad, int chunk) {
   extern __shared__ float smem[];
-  float* s_key = smem;                      // depth; later per-lane contrib
-  int* s_idx = reinterpret_cast<int*>(smem + k_pad);
-  float* s_op = smem + 2 * k_pad;
-  float* s_mx = smem + 3 * k_pad;
-  float* s_my = smem + 4 * k_pad;
-  float* s_ca = smem + 5 * k_pad;
-  float* s_cb = smem + 6 * k_pad;
-  float* s_cc = smem + 7 * k_pad;
-  float* s_r = smem + 8 * k_pad;
-  float* s_g = smem + 9 * k_pad;
-  float* s_b = smem + 10 * k_pad;
-  float* s_part = smem + 11 * k_pad;        // [kWarps][chunk]
+  const blend::Lanes lanes = blend::lanes_at(smem, k_pad, smem + 12 * k_pad);
+  float* s_key = smem + 10 * k_pad;         // depth, sorted
+  int* s_idx = reinterpret_cast<int*>(smem + 11 * k_pad);
 
   const int slot = blockIdx.x;
   const int tid = threadIdx.x;
@@ -107,33 +104,28 @@ __global__ void __launch_bounds__(kThreads) raster_plan_kernel(
 
   // ---- gather the blend record in sorted order; padding lanes read 0 ----
   for (int s = tid; s < k_pad; s += kThreads) {
-    const bool real = active && s < count;
-    const size_t g = row + (real ? s_idx[s] : 0);
-    s_key[s] = real ? s_key[s] : 0.0f;  // padding depth 0: 0 * inf is NaN
-    s_op[s] = real ? opacity[g] : 0.0f;
-    s_mx[s] = real ? mean2d[2 * g] : 0.0f;
-    s_my[s] = real ? mean2d[2 * g + 1] : 0.0f;
-    s_ca[s] = real ? conic[3 * g] : 0.0f;
-    s_cb[s] = real ? conic[3 * g + 1] : 0.0f;
-    s_cc[s] = real ? conic[3 * g + 2] : 0.0f;
-    s_r[s] = real ? rgb[3 * g] : 0.0f;
-    s_g[s] = real ? rgb[3 * g + 1] : 0.0f;
-    s_b[s] = real ? rgb[3 * g + 2] : 0.0f;
+    if (active && s < count) {
+      const size_t g = row + s_idx[s];
+      blend::store_lane(lanes, s, mean2d[2 * g], mean2d[2 * g + 1],
+                        conic[3 * g], conic[3 * g + 1], conic[3 * g + 2],
+                        opacity[g], rgb[3 * g], rgb[3 * g + 1],
+                        rgb[3 * g + 2], s_key[s]);
+    } else {  // padding depth 0: 0 * inf is NaN
+      blend::store_lane(lanes, s, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f,
+                        0.0f, 0.0f, 0.0f);
+    }
   }
 
   // ---- chunked front-to-back blend, one thread per pixel ----
-  const blend::Lanes lanes = {s_key, s_op, s_mx, s_my, s_ca,  s_cb,
-                              s_cc,  s_r,  s_g,  s_b,  s_part};
   const int used = active ? min((count + chunk - 1) / chunk, k_pad / chunk) : 0;
-  const float2 pc = blend::pixel_centre(origins, slot);
-  const blend::Pixel p = blend::blend_chunks(lanes, pc.x, pc.y, used, chunk);
-  blend::store_pixel(p, slot, count, chunk, out_rgb, out_trans, out_depth,
-                     out_tdepth, out_processed);
+  const int n_run =
+      blend::render_tile(lanes, origins, slot, used, count, chunk, out_rgb,
+                         out_trans, out_depth, out_tdepth, out_processed);
   // Every input lane gets its contribution (0 where no chunk ran).
-  const int ran = p.n_run * chunk;
+  const int ran = n_run * chunk;
   for (int s = tid; s < k_pad; s += kThreads) {
     const int l = s_idx[s];
-    if (l < k) out_contrib[row + l] = s < ran ? s_key[s] : 0.0f;
+    if (l < k) out_contrib[row + l] = s < ran ? lanes.c[s].y : 0.0f;
   }
 }
 
@@ -149,7 +141,7 @@ extern "C" int raster_plan_fused(
     float* out_trans, float* out_depth, float* out_tdepth,
     int* out_processed, float* out_contrib, int r, int k, int k_pad,
     int chunk, void* stream) {
-  const size_t smem = (11 * static_cast<size_t>(k_pad) +
+  const size_t smem = (12 * static_cast<size_t>(k_pad) +
                        static_cast<size_t>(kWarps) * chunk) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       raster_plan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

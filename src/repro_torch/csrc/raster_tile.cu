@@ -7,8 +7,8 @@
 // tile:
 //
 //   1. the lanes the blend can reach (the first ceil(count / chunk)
-//      chunks) are read once into shared memory, one float array per
-//      attribute (10 x 4 B x K: 40 KiB at K = 1024); lanes past count
+//      chunks) are read once into shared memory as packed records (float4,
+//      float4, float2: 10 x 4 B x K, 40 KiB at K = 1024); lanes past count
 //      read as 0, as the fused kernel's padding does;
 //   2. the chunked front-to-back blend of blend.cuh, the same code the
 //      fused kernel runs, so the two impls blend in one order and agree
@@ -20,8 +20,12 @@
 // What bounds it: the blend's arithmetic, as for the fused kernel (about
 // 16 flops and one expf per pixel and lane reached before the pixel is
 // done, 17 more where the lane blends); each real lane's 40 B record is
-// read once. Records sit in shared memory and are read there as a
-// broadcast; empty tiles skip the blend.
+// read once. On the card the loop is held back by the instructions it
+// issues around that arithmetic more than by the arithmetic itself, so
+// blend.cuh cuts them: a lane's record reaches the warp as three broadcast
+// vector loads (not ten scalar ones), and the lane contributions are
+// reduced 32 lanes at a time by a transposed butterfly (about one shuffle
+// a lane, not a vote and five). Empty tiles skip the blend.
 //
 // Built with -fmad=false so that the per-pixel arithmetic rounds as the
 // plain PyTorch version's separate operations do.
@@ -35,8 +39,12 @@ namespace {
 
 using blend::kThreads;
 using blend::kWarps;
+// CTAs a SM must fit: caps a thread at 64 registers (a few spill), so
+// that the 32 lane weights blend.cuh keeps in registers do not cost
+// occupancy.
+constexpr int kMinCtas = 4;
 
-__global__ void __launch_bounds__(kThreads) raster_tile_kernel(
+__global__ void __launch_bounds__(kThreads, kMinCtas) raster_tile_kernel(
     const float* __restrict__ mean2d, const float* __restrict__ conic,
     const float* __restrict__ rgb, const float* __restrict__ opacity,
     const float* __restrict__ depth, const float* __restrict__ origins,
@@ -45,17 +53,7 @@ __global__ void __launch_bounds__(kThreads) raster_tile_kernel(
     float* __restrict__ out_tdepth, int* __restrict__ out_processed,
     float* __restrict__ out_contrib, int k, int chunk) {
   extern __shared__ float smem[];
-  float* s_key = smem;                      // depth; later per-lane contrib
-  float* s_op = smem + k;
-  float* s_mx = smem + 2 * k;
-  float* s_my = smem + 3 * k;
-  float* s_ca = smem + 4 * k;
-  float* s_cb = smem + 5 * k;
-  float* s_cc = smem + 6 * k;
-  float* s_r = smem + 7 * k;
-  float* s_g = smem + 8 * k;
-  float* s_b = smem + 9 * k;
-  float* s_part = smem + 10 * k;            // [kWarps][chunk]
+  const blend::Lanes lanes = blend::lanes_at(smem, k, smem + 10 * k);
 
   const int slot = blockIdx.x;
   const int tid = threadIdx.x;
@@ -64,38 +62,34 @@ __global__ void __launch_bounds__(kThreads) raster_tile_kernel(
   const int used = (count + chunk - 1) / chunk;  // <= k / chunk
 
   for (int l = tid; l < used * chunk; l += kThreads) {
-    const bool real = l < count;
-    const size_t g = row + l;
-    s_key[l] = real ? depth[g] : 0.0f;
-    s_op[l] = real ? opacity[g] : 0.0f;
-    s_mx[l] = real ? mean2d[2 * g] : 0.0f;
-    s_my[l] = real ? mean2d[2 * g + 1] : 0.0f;
-    s_ca[l] = real ? conic[3 * g] : 0.0f;
-    s_cb[l] = real ? conic[3 * g + 1] : 0.0f;
-    s_cc[l] = real ? conic[3 * g + 2] : 0.0f;
-    s_r[l] = real ? rgb[3 * g] : 0.0f;
-    s_g[l] = real ? rgb[3 * g + 1] : 0.0f;
-    s_b[l] = real ? rgb[3 * g + 2] : 0.0f;
+    if (l < count) {
+      const size_t g = row + l;
+      blend::store_lane(lanes, l, mean2d[2 * g], mean2d[2 * g + 1],
+                        conic[3 * g], conic[3 * g + 1], conic[3 * g + 2],
+                        opacity[g], rgb[3 * g], rgb[3 * g + 1],
+                        rgb[3 * g + 2], depth[g]);
+    } else {
+      blend::store_lane(lanes, l, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f,
+                        0.0f, 0.0f, 0.0f);
+    }
   }
 
-  const blend::Lanes lanes = {s_key, s_op, s_mx, s_my, s_ca,  s_cb,
-                              s_cc,  s_r,  s_g,  s_b,  s_part};
-  const float2 pc = blend::pixel_centre(origins, slot);
-  const blend::Pixel p = blend::blend_chunks(lanes, pc.x, pc.y, used, chunk);
-  blend::store_pixel(p, slot, count, chunk, out_rgb, out_trans, out_depth,
-                     out_tdepth, out_processed);
+  const int n_run =
+      blend::render_tile(lanes, origins, slot, used, count, chunk, out_rgb,
+                         out_trans, out_depth, out_tdepth, out_processed);
   // Every lane gets its contribution (0 where no chunk ran).
-  const int ran = p.n_run * chunk;
+  const int ran = n_run * chunk;
   for (int l = tid; l < k; l += kThreads)
-    out_contrib[row + l] = l < ran ? s_key[l] : 0.0f;
+    out_contrib[row + l] = l < ran ? lanes.c[l].y : 0.0f;
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Inputs are contiguous float32
 // (R, K, ...) bins, depth-sorted within each row, plus origins (R, 2) and
-// counts (R,) int32; K is a multiple of chunk and chunk <= 256. Returns
-// cudaGetLastError().
+// counts (R,) int32; K is a multiple of chunk and chunk <= 256. Shared
+// memory: the packed records (10 floats a lane) and the warp partials.
+// Returns cudaGetLastError().
 extern "C" int raster_tile(
     const float* mean2d, const float* conic, const float* rgb,
     const float* opacity, const float* depth, const float* origins,

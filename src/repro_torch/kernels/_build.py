@@ -14,7 +14,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -23,33 +23,36 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (looked on PATH and in "
-                       "/usr/local/cuda/bin); the CUDA kernels build with it")
-
-
 def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
-def compile_library(name: str) -> Tuple[float, str]:
-    """Compile ``csrc/<name>.cu``; returns (seconds, nvcc's ptxas report)."""
-    src = CSRC / f"{name}.cu"
-    out = library_path(name)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def compile_library(name: str, csrc: Path = CSRC,
+                    out: Optional[Path] = None) -> Tuple[float, str]:
+    """Compile ``<csrc>/<name>.cu`` (into ``out``, by default the package's
+    build directory); returns (seconds, nvcc's ptxas report)."""
+    src = csrc / f"{name}.cu"
+    out = library_path(name) if out is None else out
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
+    proc = subprocess.run([cuda_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp),
+                           str(src)], capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)
     return seconds, proc.stdout + proc.stderr
+
+
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
+    for cand in (shutil.which(name), f"/usr/local/cuda/bin/{name}"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(f"{name} not found (looked on PATH and in "
+                       "/usr/local/cuda/bin)")
 
 
 @functools.lru_cache(maxsize=None)

@@ -65,8 +65,12 @@ def raster_chunked(mean2d, conic, rgb, opacity, depth, origins, counts, *,
 
     ``work``, when given a dict, receives the work the function needs on
     these inputs: ``"evaluated"``, the (pixel, real lane) pairs reached
-    while the pixel is not yet done (T before the lane >= T_EPS), and
-    ``"blended"``, the pairs with a nonzero blend weight.
+    while the pixel is not yet done (T before the lane >= T_EPS),
+    ``"blended"``, the pairs with a nonzero blend weight, and
+    ``"warp_chunks"``, the (32-pixel warp, chunk below the slot's count)
+    pairs that start with a pixel of the warp not yet done: the chunks
+    the CUDA blend's warps run, each over 32 pixels and ``chunk`` lanes
+    (a warp whose pixels are all done skips the chunk).
     """
     r, k = opacity.shape
     if k % chunk:
@@ -88,6 +92,7 @@ def raster_chunked(mean2d, conic, rgb, opacity, depth, origins, counts, *,
     rows = max(1, _CHUNK_BLOCK // (p * chunk))
     n_eval = torch.zeros((), dtype=torch.int64, device=dev)
     n_blend = torch.zeros((), dtype=torch.int64, device=dev)
+    n_warp = torch.zeros((), dtype=torch.int64, device=dev)
     for r0 in range(0, r, rows):
         b = slice(r0, r0 + rows)
         px, py = pixel_coords(origins[b], tile)          # (B, P)
@@ -123,6 +128,8 @@ def raster_chunked(mean2d, conic, rgb, opacity, depth, origins, counts, *,
                 n_eval += ((t_before >= T_EPS) & ~done[..., None]
                            & real[:, None, :]).sum()
                 n_blend += (w > 0).sum()
+                n_warp += ((~done).reshape(nb, -1, 32).any(dim=2)
+                           & (i * chunk < counts[b])[:, None]).sum()
             c_acc = c_acc + w @ rgb[b, sl]
             d_acc = d_acc + (w * dep).sum(dim=2)
             w_acc = w_acc + w.sum(dim=2)
@@ -141,6 +148,7 @@ def raster_chunked(mean2d, conic, rgb, opacity, depth, origins, counts, *,
     if work is not None:
         work["evaluated"] = int(n_eval)
         work["blended"] = int(n_blend)
+        work["warp_chunks"] = int(n_warp)
     shape = (r, tile, tile)
     return (rgb_o.reshape(r, tile, tile, 3), trans_o.reshape(shape),
             depth_o.reshape(shape), tdepth_o.reshape(shape), processed,
@@ -229,7 +237,7 @@ def raster_plan_cuda(mean2d, conic, rgb, opacity, depth, origins, counts,
     if dev.type != "cuda":
         raise ValueError("the fused raster kernel needs CUDA tensors")
     k_pad = pow2_at_least(max(k, chunk))
-    smem = (11 * k_pad + 8 * chunk) * 4
+    smem = (12 * k_pad + 8 * chunk) * 4
     if smem > MAX_SMEM:
         raise ValueError(f"K={k} needs {smem} B of shared memory per CTA; "
                          f"the card offers {MAX_SMEM}")

@@ -2,9 +2,12 @@
 plain version.
 
 Replaces ``repro/kernels/tile_sort.py::_bitonic_kernel`` (the Pallas
-bitonic sorter). The kernel is ``csrc/tile_sort.cu``: one CTA per row, a
-bitonic network over (key, lane) items in shared memory with the row
-padded to a power of two by items that sort last. The lane breaks every
+bitonic sorter). The kernel is ``csrc/tile_sort.cu``: each key is packed
+with its lane as a 64-bit item, the row is padded to a power of two by
+items that sort last, and the bitonic network of ``csrc/bitonic.cuh``
+sorts the items in registers (``sort_layout`` says how a row is spread
+over threads; ``network_schedule`` lists the sweeps it runs and the level
+of each: register, warp shuffle or shared memory). The lane breaks every
 tie, so the kernel returns the STABLE sort: it equals ``tile_sort_ref``
 (``kernels/ref.py``) on every input, ties included, where the
 reference's Pallas network leaves equal keys in no fixed order. What
@@ -19,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import time
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -26,10 +30,76 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.raster_plan import MAX_SMEM, pow2_at_least
 from repro_torch.kernels.ref import tile_sort_ref
 
+# Items per thread of a row too long for one warp; 16 past 8192 items,
+# so that a row stays within 1024 threads.
+ITEMS_PER_THREAD = 8
+# Rows of one warp each that one CTA sorts.
+WARP_ROWS_PER_CTA = 8
+
+
+class SortLayout(NamedTuple):
+    """How ``csrc/tile_sort.cu`` spreads a row of K keys over threads."""
+
+    n: int             # items per row: a power of two >= K
+    e: int             # items per thread (consecutive positions)
+    rows_per_cta: int  # > 1 only with one warp (n / e == 32) per row
+    threads: int       # per CTA
+    smem: int          # bytes of shared memory per CTA
+
+
+def _pad(i: int) -> int:
+    return i + (i >> 5)
+
+
+def sort_layout(k: int) -> SortLayout:
+    """The kernel's layout for rows of ``k`` keys. Rows of up to
+    32 * ITEMS_PER_THREAD items take one warp (pow2(K) padded up to 32 E,
+    E = pow2(K) / 32 but at least 1), several rows to a CTA; longer rows
+    take pow2(K) / E threads. Shared memory per row (as ``row_words`` in
+    the source): the exchange buffer, reused for the sorted lanes and the
+    values, and the raw keys. ValueError where pow2(K) items of 8 B
+    exceed one CTA's shared memory (K > 16384): the network runs in one
+    CTA."""
+    k_pad = pow2_at_least(max(k, 1))
+    if k_pad * 8 > MAX_SMEM:
+        raise ValueError(f"K={k} pads to {k_pad} items of 8 B, more than "
+                         f"the {MAX_SMEM} B of shared memory a CTA can use")
+    if k_pad <= 32 * ITEMS_PER_THREAD:
+        e = max(1, k_pad // 32)
+        n, rows = 32 * e, WARP_ROWS_PER_CTA
+    else:
+        e = ITEMS_PER_THREAD if k_pad <= 1024 * ITEMS_PER_THREAD \
+            else 2 * ITEMS_PER_THREAD
+        n, rows = k_pad, 1
+    x = _pad(n) + _pad(k)
+    if n > 32 * e:
+        x = max(x, 2 * n)
+    words = ((x + 1) & ~1) + ((_pad(k) + 1) & ~1)
+    return SortLayout(n, e, rows, n // e * rows, rows * words * 4)
+
+
+def network_schedule(k_pad: int) -> List[Tuple[int, int, str]]:
+    """The sweeps ``csrc/bitonic.cuh`` runs for rows of ``k_pad`` keys, in
+    order: (span, stride, level) with level "register" (stride < E),
+    "shuffle" (E <= stride < 32 E) or "shared" (stride >= 32 E). The
+    network covers ``sort_layout(k_pad).n`` items."""
+    lay = sort_layout(k_pad)
+    out = []
+    span = 2
+    while span <= lay.n:
+        stride = span // 2
+        while stride >= 1:
+            level = ("register" if stride < lay.e else
+                     "shuffle" if stride < 32 * lay.e else "shared")
+            out.append((span, stride, level))
+            stride //= 2
+        span *= 2
+    return out
+
 
 def _c_function():
     fn = _build.load_library("tile_sort").tile_sort
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -52,15 +122,13 @@ def tile_sort_cuda(keys: torch.Tensor, values: torch.Tensor):
     if keys.device.type != "cuda":
         raise ValueError("the tile sort kernel needs CUDA tensors")
     t, k = keys.shape
-    k_pad = pow2_at_least(max(k, 1))
-    if k_pad * 8 > MAX_SMEM:
-        raise ValueError(f"K={k} needs {k_pad * 8} B of shared memory per "
-                         f"CTA; the card offers {MAX_SMEM}")
+    lay = sort_layout(k)
     keys = keys.contiguous()
     values = values.contiguous()
     out_k, out_v = torch.empty_like(keys), torch.empty_like(values)
     err = _c_function()(keys.data_ptr(), values.data_ptr(),
-                        out_k.data_ptr(), out_v.data_ptr(), t, k, k_pad,
+                        out_k.data_ptr(), out_v.data_ptr(), t, k, lay.n,
+                        lay.e, lay.rows_per_cta,
                         torch.cuda.current_stream(keys.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"tile_sort launch failed: CUDA error {err}")

@@ -139,6 +139,44 @@ def test_plain_version_counts_its_work(tile_inputs, capacity, chunk):
     assert abs(work["blended"] - blended) <= 1e-3 * blended
 
 
+@pytest.mark.parametrize("capacity,chunk", [(64, 16), (128, 64)])
+def test_plain_version_counts_warp_chunks(tile_inputs, capacity, chunk):
+    """``work["warp_chunks"]`` counts the (warp, chunk) pairs the CUDA
+    blend runs: chunks below the slot's count that start with one of the
+    warp's 32 pixels not yet done, as the whole-row transmittance at each
+    chunk's end decides it (a pixel may flip where the chunked product
+    rounds across T_EPS)."""
+    mean2d, conic, rgb, opacity, depth, origins, counts = _torch_args(
+        tile_inputs[capacity])
+    # Wide, near-opaque splats on the odd slots, so that whole warps
+    # finish early there and skip chunks.
+    odd = (torch.arange(opacity.shape[0]) % 2 == 1)[:, None]
+    opacity = torch.where(odd & (opacity > 0), 0.99, opacity)
+    conic = torch.where(odd[..., None], conic * 1e-4, conic)
+    args = (mean2d, conic, rgb, opacity, depth, origins, counts)
+    work = {}
+    trp.raster_plan_torch(*args, chunk=chunk, work=work)
+    px, py = tref.pixel_coords(origins)
+    dx = px[:, :, None] - mean2d[:, None, :, 0]
+    dy = py[:, :, None] - mean2d[:, None, :, 1]
+    power = (-0.5 * (conic[:, None, :, 0] * dx * dx
+                     + conic[:, None, :, 2] * dy * dy)
+             - conic[:, None, :, 1] * dx * dy)
+    alpha = tref.alpha_of(opacity[:, None, :], power)
+    t_end = torch.cumprod(1.0 - alpha, dim=2)[..., chunk - 1::chunk]
+    # Pixel done before chunk i: some earlier chunk ended below T_EPS.
+    done_before = torch.cat([torch.zeros_like(t_end[..., :1], dtype=bool),
+                             torch.cummax((t_end < tref.T_EPS).int(),
+                                          dim=2)[0][..., :-1].bool()], dim=2)
+    r, p, n = done_before.shape
+    warp_live = (~done_before).reshape(r, p // 32, 32, n).any(dim=2)
+    below = torch.arange(n)[None] * chunk < counts[:, None]
+    want = int((warp_live & below[:, None]).sum())
+    upper = int(((counts + chunk - 1) // chunk).sum()) * (p // 32)
+    assert 0 < want < upper
+    assert abs(work["warp_chunks"] - want) <= 1e-2 * want
+
+
 def test_masked_slots_render_empty(tile_inputs):
     m, c, r, o, d, org, counts = _torch_args(tile_inputs[64])
     active = torch.arange(counts.shape[0]) % 2 == 0
