@@ -6,17 +6,21 @@
 Phases (each prints its own lines; a failed check exits non-zero):
 
 1. Device: the card's name and power limit, the kernels built from
-   ``src/repro_torch`` (one nvcc per ``csrc/*.cu``, all started together;
-   Triton for the preprocess kernel) and their build times.
+   ``src/repro_torch`` (one nvcc per ``csrc/*.cu``, all four started
+   together), their build times and ptxas lines.
 2. Kernels vs their plain PyTorch versions on the card, at the main
    paths' shapes: the first key frame's real (R = 8160, K = 1024) bins
    for the fused sort + blend kernel (2a: as binned, with lanes shuffled
-   per slot, and with masked slots) and the tile raster kernel (2c:
+   per slot, with masked slots, at K = 960 against the plain version and
+   at K = 2,048 and 4,096 bit for bit against K = 1,024; its registers,
+   shared memory, CTAs a SM and its sort's sweeps per level) and the
+   tile raster kernel (2c:
    against its plain version and bit for bit against the fused kernel,
    at chunk 64 and also 16 and 256, and at chunk 48 on the first 960
    lanes against the plain version; its static SASS by class and the
    (pixel, lane) evaluations it runs), all N Gaussians for the
-   preprocess kernel (2b), and that frame's (8160, 1024) depth keys with
+   preprocess kernel (2b, with its registers and CTAs a SM), and that
+   frame's (8160, 1024) depth keys with
    int32 ids for the tile sorter (2d, exact, through its counting
    wrapper; also rows with ties, NaN, -0, +-inf, K not a power of two,
    K = 1, 257, 4096 and 16384; each case's layout and its network's
@@ -151,6 +155,42 @@ def max_err(a, b):
     return float((a - b).abs().max()) if a.numel() else 0.0
 
 
+def theoretical_occupancy(regs, threads, smem):
+    """(CTAs a SM, resident warps / 64) that registers, threads and shared
+    memory allow on an H100 (registers allocated per warp in units of
+    256, 1 KiB of shared memory reserved per CTA)."""
+    warps = math.ceil(threads / 32)
+    per_warp = math.ceil(regs * 32 / 256) * 256
+    ctas = min(32, 2048 // threads, 65536 // (per_warp * warps),
+               (228 * 1024) // (smem + 1024))
+    return ctas, ctas * warps / 64
+
+
+def ptxas_lines(report, symbol):
+    """nvcc -Xptxas -v's lines for the entry function ``symbol``."""
+    lines = report.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and symbol in line:
+            return [ln.strip() for ln in lines[i + 1:i + 6]
+                    if "registers" in ln or "spill" in ln]
+    return []
+
+
+def registers(lines):
+    for ln in lines:
+        if "registers" in ln:
+            return int(ln.split("Used ")[1].split(" registers")[0])
+    return 0
+
+
+def print_occupancy(what, lines, threads, smem):
+    """Print a kernel's ptxas lines and the CTAs a SM they allow."""
+    ctas, occ = theoretical_occupancy(registers(lines), threads, smem)
+    print(f"  {what}: {'; '.join(lines)}; {threads} threads, {smem} B "
+          f"shared a CTA -> {ctas} CTAs/SM, theoretical occupancy "
+          f"{occ:.3f}", flush=True)
+
+
 def phase_device():
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import (preprocess, raster_plan, raster_tile,
@@ -165,22 +205,22 @@ def phase_device():
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
-    mods = (raster_plan, raster_tile, tile_sort)
+    mods = (preprocess, raster_plan, raster_tile, tile_sort)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as pool:
         builds = [pool.submit(m.build) for m in mods]
         results = [b.result() for b in builds]
     print(f"build of {len(mods)} CUDA sources in parallel: "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    reports = {}
     for mod, (nvcc_s, report) in zip(mods, results):
         name = mod.__name__.rsplit(".", 1)[1]
+        reports[name] = report
         print(f"build {name}.cu (nvcc, sm_90a): {nvcc_s:.2f} s", flush=True)
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
-    triton_s = preprocess.build()
-    print(f"build preprocess (triton): {triton_s:.2f} s", flush=True)
-    return smi
+    return smi, reports
 
 
 def key_frame_bins(scene, cam, cfg):
@@ -280,7 +320,20 @@ def tie_slots(depth, counts):
     return ((s[:, 1:] == s[:, :-1]) & torch.isfinite(s[:, 1:])).any(dim=1)
 
 
-def phase_raster_kernel(args, flush):
+def sort_levels(counts, k_pad):
+    """Slots by the fused kernel's sort length n, and the sweeps of their
+    sorts per level, summed over the slots."""
+    from repro_torch.kernels import raster_plan
+    rows, levels = {}, {}
+    for c in counts.tolist():
+        lay = raster_plan.sort_layout(c, k_pad)
+        rows[lay.n if c > 0 else 0] = rows.get(lay.n if c > 0 else 0, 0) + 1
+        for _, _, level in raster_plan.network_schedule(c, k_pad):
+            levels[level] = levels.get(level, 0) + 1
+    return dict(sorted(rows.items())), levels
+
+
+def phase_raster_kernel(args, flush, report):
     from repro_torch.kernels import raster_plan
     print("== phase 2a: fused sort + blend kernel vs its plain version",
           flush=True)
@@ -289,6 +342,20 @@ def phase_raster_kernel(args, flush):
     active = torch.ones((r,), dtype=torch.bool, device=opacity.device)
     print(f"  bins: R={r} K={k} pairs={int(counts.sum())}", flush=True)
     chunk = 64
+    k_pad = raster_plan.pow2_at_least(max(k, chunk))
+    e = raster_plan.items_per_thread(k_pad)
+    print_occupancy(f"raster_plan_kernel<{e}>",
+                    ptxas_lines(report, f"raster_plan_kernelILi{e}E"), 256,
+                    raster_plan.smem_bytes(k_pad, chunk))
+    rows, levels = sort_levels(counts, k_pad)
+    total = sum(levels.values())
+    full = {}
+    for _, _, level in raster_plan.network_schedule(k_pad, k_pad):
+        full[level] = full.get(level, 0) + 1
+    print(f"  sort: E = {e}; slots by sorted items (0: not sorted) {rows}; "
+          f"sweeps per level over the slots {levels} (shares "
+          f"{ {lv: round(c / total, 4) for lv, c in levels.items()} }); a "
+          f"full row of {k_pad}: {full}", flush=True)
     got = raster_plan.raster_plan_cuda(*args, active, chunk=chunk)
     work = {}
     want = raster_plan.raster_plan_torch(*args, active, chunk=chunk,
@@ -326,6 +393,29 @@ def phase_raster_kernel(args, flush):
     check(all(torch.equal(a[masked], b[masked]) for a, b in
               zip(got_m, got)), "active slots unchanged by masking")
 
+    # Other row widths: K = 960 (padded to 1,024) against the plain
+    # version; K = 2,048 and 4,096 (the E = 8 and E = 16 instances, shared
+    # memory past 48 KiB) on the same lanes with zero lanes appended, which
+    # no slot reads: the outputs must equal the K = 1,024 run bit for bit.
+    cut = tuple(x[:, :960].contiguous() for x in args[:5]) \
+        + (origins, counts.clamp(max=960))
+    err = max(err, compare_raster(
+        raster_plan.raster_plan_cuda(*cut, active, chunk=chunk),
+        raster_plan.raster_plan_torch(*cut, active, chunk=chunk),
+        "K 960", chunk))
+    for wide in (2048, 4096):
+        padded = tuple(torch.nn.functional.pad(
+            x, [0, 0] * (x.dim() - 2) + [0, wide - k]) for x in args[:5])
+        got_w = raster_plan.raster_plan_cuda(*padded, origins, counts,
+                                             active, chunk=chunk)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got_w[:5], got[:5]))
+              and torch.equal(got_w[5][:, :k], got[5])
+              and not bool(got_w[5][:, k:].any()),
+              f"K {wide} (E = {raster_plan.items_per_thread(wide)}): the "
+              f"K = {k} outputs bit for bit, 0 on the appended lanes")
+        del padded, got_w
+
     run = lambda: raster_plan.raster_plan_cuda(  # noqa: E731
         *args, active, chunk=chunk)
     dev_ms = kernel_ms(run, "raster_plan_kernel", 20, flush)
@@ -357,26 +447,21 @@ def phase_raster_kernel(args, flush):
                 library_ms=None)
 
 
-def phase_preprocess_kernel(scene, cam, flush):
-    from repro_torch.kernels import preprocess as kp
-    print("== phase 2b: preprocess kernel vs its plain version", flush=True)
-    op = torch.sigmoid(scene.opacity_logits)
-    inputs = (scene.means, scene.log_scales, scene.quats, op, cam.w2c,
-              (cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height))
-    got = kp.preprocess_geom_triton(*inputs)
-    want = kp.preprocess_geom_torch(*inputs)
-    torch.cuda.synchronize()
-    n = scene.means.shape[0]
+def check_preprocess(got, want, what):
+    """Hold one preprocess result against another (the plain version's);
+    returns the largest error over the compared fields."""
+    n = want.depth.shape[0]
     n_valid_diff = int((got.valid != want.valid).sum())
     n_r3_diff = int((got.radius3 != want.radius3).sum())
-    print(f"  N={n}: valid differs on {n_valid_diff}, radius3 (a ceil) on "
-          f"{n_r3_diff} Gaussians", flush=True)
+    print(f"  {what}, N={n}: valid differs on {n_valid_diff}, radius3 (a "
+          f"ceil) on {n_r3_diff} Gaussians", flush=True)
     # Flags and the ceil flip only where a value sits within rounding of
     # the threshold: allow one in 10^4.
-    check(n_valid_diff <= n // 10_000, "valid flags agree (<= 1e-4 of N)")
+    check(n_valid_diff <= n // 10_000,
+          f"{what}: valid flags agree (<= 1e-4 of N)")
     check(n_r3_diff <= n // 10_000 and
           bool(((got.radius3 - want.radius3).abs() <= 1).all()),
-          "radius3 agrees (<= 1e-4 of N differ, by at most 1)")
+          f"{what}: radius3 agrees (<= 1e-4 of N differ, by at most 1)")
     both = got.valid & want.valid
     err = 0.0
     # Each element isclose(rtol, atol) to the plain value, the atol far
@@ -399,9 +484,9 @@ def phase_preprocess_kernel(scene, cam, flush):
         ratio = float(((g - w).abs() / (atol + rtol * w.abs())).max())
         rel = float(((g - w).abs() / w.abs().clamp_min(1e-30)).max())
         check(ratio <= 1.0,
-              f"{name}: isclose(rtol {rtol:g}, atol {atol:g}) everywhere "
-              f"(worst |err| / tol {ratio:.3g}, max abs err {e:.3g}, max "
-              f"rel err {rel:.3g})")
+              f"{what}: {name}: isclose(rtol {rtol:g}, atol {atol:g}) "
+              f"everywhere (worst |err| / tol {ratio:.3g}, max abs err "
+              f"{e:.3g}, max rel err {rel:.3g})")
     # The minor axis (b, lam2 - a) / norm cancels in lam2 - a: an input
     # error of ~100 ulps in a, c moves it by ~100 eps max(|a|, |c|) / |b|
     # (unbounded as b -> 0, where the axis is the other branch's).
@@ -412,11 +497,32 @@ def phase_preprocess_kernel(scene, cam, flush):
     loose = int((tol > 1e-2).sum())
     err = max(err, float(e_row.max()) if e_row.numel() else 0.0)
     check(bool((e_row <= tol).all()),
-          f"minor_axis: within 1e-4 + 100 eps max(|a|,|c|)/|b| per row "
-          f"(max abs err {float(e_row.max()):.3g}; {loose} rows with |b| "
-          f"so small that the bound exceeds 1e-2)")
+          f"{what}: minor_axis: within 1e-4 + 100 eps max(|a|,|c|)/|b| per "
+          f"row (max abs err {float(e_row.max()):.3g}; {loose} rows with "
+          f"|b| so small that the bound exceeds 1e-2)")
+    return err
 
-    run = lambda: kp.preprocess_geom_triton(*inputs)  # noqa: E731
+
+def preprocess_inputs(scene, cam):
+    """The preprocess kernel's inputs for ``scene`` seen by ``cam``."""
+    op = torch.sigmoid(scene.opacity_logits)
+    return (scene.means, scene.log_scales, scene.quats, op, cam.w2c,
+            (cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height))
+
+
+def phase_preprocess_kernel(scene, cam, flush, report):
+    from repro_torch.kernels import preprocess as kp
+    print("== phase 2b: preprocess kernel vs its plain version", flush=True)
+    inputs = preprocess_inputs(scene, cam)
+    n = scene.means.shape[0]
+    print_occupancy("preprocess_kernel",
+                    ptxas_lines(report, "preprocess_kernel"), 128, 0)
+    got = kp.preprocess_geom_cuda(*inputs)
+    want = kp.preprocess_geom_torch(*inputs)
+    torch.cuda.synchronize()
+    err = check_preprocess(got, want, "kernel vs plain")
+
+    run = lambda: kp.preprocess_geom_cuda(*inputs)  # noqa: E731
     dev_ms = kernel_ms(run, "preprocess_kernel", 20, flush)
     launch_ms = time_ms(run, 20, flush)
     plain_ms = time_ms(lambda: kp.preprocess_geom_torch(*inputs), 20, flush)
@@ -426,8 +532,8 @@ def phase_preprocess_kernel(scene, cam, flush):
           f"{launch_ms:.4f} ms with its launch (CUDA events, median of 20), "
           f"plain {plain_ms:.4f} ms (CUDA events, median of 20), bound "
           f"{bound_ms:.5f} ms ({bound_by})", flush=True)
-    return dict(name="preprocess_geom", route="triton",
-                source="src/repro_torch/kernels/preprocess.py",
+    return dict(name="preprocess_geom", route="cuda",
+                source="src/repro_torch/csrc/preprocess.cu",
                 replaces="src/repro/kernels/preprocess.py:25",
                 max_abs_err=err, ms=dev_ms, ms_with_launch=launch_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -952,7 +1058,8 @@ def phase_serve(cam, cfg):
     print(f"  simulated accelerator {report['sim']}", flush=True)
 
     # Padding rows are invalid for every pose the blob scene was served at
-    # (sigmoid(-20) ~ 2e-9 fails the opacity cull in the Triton kernel).
+    # (sigmoid(-20) ~ 2e-9 fails the opacity cull in the preprocess
+    # kernel).
     blob = reg.get(entries[1].scene_id).scene
     served_poses = [p for sess, poses in sessions
                     if sess.scene_id == entries[1].scene_id for p in poses]
@@ -1028,7 +1135,7 @@ def main():
     from repro_torch.scenes.synthetic import structured_scene
     from repro_torch.scenes.trajectory import dolly_trajectory
 
-    smi = phase_device()
+    smi, reports = phase_device()
     poses = dolly_trajectory(N_FRAMES, start=(0.0, -0.3, -2.0),
                              target=(0.0, 0.0, 6.0))
     cam = make_camera(poses[0], width=WIDTH, height=HEIGHT)
@@ -1038,8 +1145,10 @@ def main():
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
 
     key_bins = key_frame_bins(scene, cam, cfg)
-    kernels = [phase_raster_kernel(key_bins[3], flush),
-               phase_preprocess_kernel(scene, cam, flush),
+    kernels = [phase_raster_kernel(key_bins[3], flush,
+                                   reports["raster_plan"]),
+               phase_preprocess_kernel(scene, cam, flush,
+                                       reports["preprocess"]),
                phase_tile_raster_kernel(key_bins[3], flush),
                phase_tile_sort_kernel(key_bins[3], flush)]
     launches, base = phase_slice(scene, cam, poses, cfg, key_bins)

@@ -5,8 +5,8 @@ EWA splatting projection as in 3DGS (Sec. II-A of the paper) plus what
 TAIT (Sec. IV-C) needs downstream: eigenvalues and eigenvectors of the
 2D covariance, opacity-aware effective radii (eq. 4) and the tight
 bounding box (eq. 6). The geometry comes from
-``kernels/preprocess.py::preprocess_geom`` (the Triton kernel on CUDA,
-its plain version on the CPU); SH colour and the sigmoid opacity are
+``kernels/preprocess.py::preprocess_geom`` (the CUDA kernel on CUDA
+tensors, its plain version on the CPU); SH colour and the sigmoid opacity are
 computed here in torch.
 """
 from __future__ import annotations

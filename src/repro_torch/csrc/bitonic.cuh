@@ -22,14 +22,25 @@
 // carry their lane, as tile_sort.cu's 64-bit (key bits, lane) do, are
 // distinct, and sort stably by key.
 //
-// tile_sort.cu runs it; kernels/tile_sort.py::network_schedule lists the
-// same sweeps and levels.
+// tile_sort.cu and raster_plan.cu run it on such items, built with
+// order_bits below; kernels/tile_sort.py::network_schedule and
+// kernels/raster_plan.py::network_schedule list the sweeps and levels.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 
 namespace bitonic {
+
+// float32 -> uint32 whose unsigned order is torch.sort's order of floats:
+// -0 ties with +0, every NaN sorts last.
+__device__ __forceinline__ unsigned int order_bits(float key) {
+  if (isnan(key)) return 0xFFFFFFFFu;
+  if (key == 0.0f) return 0x80000000u;  // -0 ties with +0
+  const unsigned int b = __float_as_uint(key);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
 
 __device__ __forceinline__ unsigned int shfl_xor(unsigned int v, int m) {
   return __shfl_xor_sync(0xffffffffu, v, m);

@@ -4,32 +4,46 @@
 // kernel behind raster_plan_fused). One CTA per plan slot, 256 threads,
 // one thread per pixel of the slot's 16x16 tile:
 //
-//   1. the slot's lanes [0, count) are keyed by depth, padding by +inf,
-//      and bitonic-sorted in shared memory by (depth, original lane), the
-//      original lane index riding the compare-exchanges as the payload;
-//      only the first pow2(count) lanes take part (the padding tail is
-//      already in order);
-//   2. the blend records are gathered into shared memory in sorted order,
-//      packed as blend.cuh lays them out (with the sort's keys and lanes,
-//      12 x 4 B x K_pad in all: 48 KiB at K_pad = 1024);
+//   1. sort: each of the slot's first n = max(pow2(count), 32 E) positions
+//      becomes a 64-bit item (bitonic::order_bits(depth) << 32 | lane);
+//      positions past count carry the largest bits and lanes past every
+//      real lane, so they sort last. The items are sorted in registers by
+//      bitonic.cuh's network, E consecutive items a thread on n / E
+//      threads: rows of up to 32 E items stay within warp 0, longer ones
+//      meet at a named barrier of their n / E threads. The lane breaks
+//      every tie, so the order is (depth, lane), -0 tied with +0, as the
+//      plain version's stable sort orders it. (order_bits puts NaN last
+//      where a float comparison would leave it unordered; real lanes
+//      never carry one: binning keeps only Gaussians with z > near.)
+//      Each item then writes its sorted position into rank[lane];
+//   2. records: each real lane's 40 B record is read in input order
+//      (a warp reads 32 consecutive lanes of each field) and stored at
+//      its sorted position, packed as blend.cuh lays them out; positions
+//      past count up to the last chunk the blend can reach are zeroed;
 //   3. front-to-back blend chunk by chunk with the reference semantics
 //      (blend.cuh, shared with raster_tile.cu: alpha = min(o e^power,
-//      0.99), alpha < 1/255 -> 0, sticky done at T < 1e-4); the CTA stops
-//      once every pixel is done (__syncthreads_or), as chunk_cond does in
-//      the Pallas kernel;
-//   4. each lane's contribution (sum over the 256 pixels of alpha*T) is
-//      reduced in a fixed order (blend.cuh: the warp's xor-butterfly tree,
-//      then the eight warp partials in order), so runs repeat bit for
-//      bit, and written straight to its INPUT lane through the payload.
+//      0.99), alpha < 1/255 -> 0, sticky done at T < 1e-4; the CTA stops
+//      once every pixel is done, as chunk_cond does in the Pallas
+//      kernel); each lane's contribution is reduced there in a fixed
+//      order, so runs repeat bit for bit;
+//   4. contributions: thread l stores input lane l's contribution, read
+//      from shared memory at rank[l], so the row is stored coalesced.
 //
 // What bounds it: the blend's arithmetic (about 16 flops and one expf per
-// pixel and lane reached before the pixel is done, 17 more where the
-// lane blends); bytes are small (each real lane's 40 B record is read
-// once). The design keeps every lane in shared memory from sort to blend,
-// reads it there as three broadcast vector loads (all threads of a warp
-// read the same address), and skips inactive or empty slots before the
-// sort. The sort (55 barrier-separated sweeps at K_pad = 1024) is
-// unchanged here; bitonic.cuh's register network is its replacement.
+// pixel and lane reached before the pixel is done, 17 more where the lane
+// blends); bytes are small (each real lane's 40 B record is read once).
+// The blend is the tile raster kernel's, so what this kernel adds to it
+// is the sort and the scatter of the records. A sort of 1,024 lanes in
+// shared memory with a barrier after each of its 55 sweeps took 61 % of
+// the CTAs' cycles (PERF.md). In registers, with E = 4 on 256 threads
+// (6 named barriers, strides >= 128), it took 42 %: its 64-bit
+// compare-exchanges and shuffles take the SM's instruction slots from
+// the other CTAs' blends. E = 8 on 128 threads (3 barriers, strides >=
+// 256) ran 0.4 % faster than that and is the one built. The exchange
+// buffer aliases the record area, which is free until the sort is done.
+// Shared memory is 11 K_pad + 8 chunk words (47,104 B at K_pad = 1024,
+// chunk 64): 4 CTAs a SM, as the 64-register cap allows. Inactive and
+// empty slots skip the sort.
 //
 // Built with -fmad=false so that the per-pixel arithmetic rounds as the
 // plain PyTorch version's separate operations do.
@@ -37,6 +51,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "bitonic.cuh"
 #include "blend.cuh"
 
 namespace {
@@ -44,14 +59,13 @@ namespace {
 using blend::kThreads;
 using blend::kWarps;
 // CTAs a SM must fit: caps a thread at 64 registers (a few spill), so
-// that the 32 lane weights blend.cuh keeps in registers do not cost the
-// occupancy the barrier-bound sort needs.
+// that the 32 lane weights blend.cuh keeps in registers do not cost
+// occupancy.
 constexpr int kMinCtas = 4;
 
-__device__ __forceinline__ bool after(float ka, int ia, float kb, int ib) {
-  return ka > kb || (ka == kb && ia > ib);
-}
-
+// E items a thread for rows of K_pad lanes: 8 up to 2,048 lanes, then 16,
+// so that a row stays within the CTA's 256 threads.
+template <int E>
 __global__ void __launch_bounds__(kThreads, kMinCtas) raster_plan_kernel(
     const float* __restrict__ mean2d, const float* __restrict__ conic,
     const float* __restrict__ rgb, const float* __restrict__ opacity,
@@ -62,78 +76,109 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) raster_plan_kernel(
     int* __restrict__ out_processed, float* __restrict__ out_contrib,
     int k, int k_pad, int chunk) {
   extern __shared__ float smem[];
-  const blend::Lanes lanes = blend::lanes_at(smem, k_pad, smem + 12 * k_pad);
-  float* s_key = smem + 10 * k_pad;         // depth, sorted
-  int* s_idx = reinterpret_cast<int*>(smem + 11 * k_pad);
+  const blend::Lanes lanes = blend::lanes_at(smem, k_pad, smem + 11 * k_pad);
+  int* s_rank = reinterpret_cast<int*>(smem + 10 * k_pad);  // by input lane
+  // The sort's exchange buffer (n <= K_pad items of 8 B) aliases the
+  // records, which land only after the sort.
+  unsigned long long* xchg = reinterpret_cast<unsigned long long*>(smem);
 
   const int slot = blockIdx.x;
   const int tid = threadIdx.x;
   const int count = min(max(counts[slot], 0), k);
   const bool active = slot_active[slot] != 0 && count > 0;
+  const int n_real = active ? count : 0;
   const size_t row = static_cast<size_t>(slot) * k;
 
-  for (int l = tid; l < k_pad; l += kThreads) {
-    s_key[l] = (active && l < count) ? depth[row + l] : INFINITY;
-    s_idx[l] = l;
-  }
-  __syncthreads();
-
-  // ---- bitonic sort of (depth, lane) over the first pow2(count) lanes ----
+  // ---- sort (depth, lane) in registers; rank[lane] = sorted position ----
   if (active) {
-    int n_sort = 1;
-    while (n_sort < count) n_sort <<= 1;
-    for (int span = 2; span <= n_sort; span <<= 1) {
-      for (int stride = span >> 1; stride > 0; stride >>= 1) {
-        for (int p = tid; p < n_sort / 2; p += kThreads) {
-          const int lo = (p / stride) * 2 * stride + (p % stride);
-          const int hi = lo + stride;
-          const float ka = s_key[lo], kb = s_key[hi];
-          const int ia = s_idx[lo], ib = s_idx[hi];
-          const bool up = (lo & span) == 0;
-          if (up ? after(ka, ia, kb, ib) : after(kb, ib, ka, ia)) {
-            s_key[lo] = kb;
-            s_key[hi] = ka;
-            s_idx[lo] = ib;
-            s_idx[hi] = ia;
-          }
-        }
-        __syncthreads();
+    int n = 32 * E;
+    while (n < count) n <<= 1;
+    const int nt = n / E;
+    if (tid < nt) {
+      unsigned long long x[E];
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        const int p = tid * E + j;
+        const unsigned int bits =
+            p < count ? bitonic::order_bits(depth[row + p]) : 0xFFFFFFFFu;
+        x[j] = (static_cast<unsigned long long>(bits) << 32) |
+               static_cast<unsigned int>(p);
+      }
+      // Rows past 32 E items span nt / 32 warps; only those meet.
+      bitonic::sort<E>(x, tid, nt, xchg, [nt]() {
+        asm volatile("bar.sync 1, %0;" ::"r"(nt) : "memory");
+      });
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        const int pos = tid * E + j;
+        if (pos < count) s_rank[static_cast<int>(x[j] & 0xFFFFFFFFull)] = pos;
       }
     }
   }
+  __syncthreads();
 
-  // ---- gather the blend record in sorted order; padding lanes read 0 ----
-  for (int s = tid; s < k_pad; s += kThreads) {
-    if (active && s < count) {
-      const size_t g = row + s_idx[s];
-      blend::store_lane(lanes, s, mean2d[2 * g], mean2d[2 * g + 1],
-                        conic[3 * g], conic[3 * g + 1], conic[3 * g + 2],
-                        opacity[g], rgb[3 * g], rgb[3 * g + 1],
-                        rgb[3 * g + 2], s_key[s]);
-    } else {  // padding depth 0: 0 * inf is NaN
-      blend::store_lane(lanes, s, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f,
-                        0.0f, 0.0f, 0.0f);
-    }
+  // ---- records in input order to their sorted positions ----
+  for (int l = tid; l < n_real; l += kThreads) {
+    const size_t g = row + l;
+    blend::store_lane(lanes, s_rank[l], mean2d[2 * g], mean2d[2 * g + 1],
+                      conic[3 * g], conic[3 * g + 1], conic[3 * g + 2],
+                      opacity[g], rgb[3 * g], rgb[3 * g + 1], rgb[3 * g + 2],
+                      depth[g]);
   }
+  // Padding up to the last chunk the blend reaches reads 0 (depth 0: 0 *
+  // inf is NaN).
+  const int used =
+      active ? min((count + chunk - 1) / chunk, k_pad / chunk) : 0;
+  for (int s = n_real + tid; s < used * chunk; s += kThreads)
+    blend::store_lane(lanes, s, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f,
+                      0.0f, 0.0f, 0.0f);
 
   // ---- chunked front-to-back blend, one thread per pixel ----
-  const int used = active ? min((count + chunk - 1) / chunk, k_pad / chunk) : 0;
   const int n_run =
       blend::render_tile(lanes, origins, slot, used, count, chunk, out_rgb,
                          out_trans, out_depth, out_tdepth, out_processed);
   // Every input lane gets its contribution (0 where no chunk ran).
   const int ran = n_run * chunk;
-  for (int s = tid; s < k_pad; s += kThreads) {
-    const int l = s_idx[s];
-    if (l < k) out_contrib[row + l] = s < ran ? lanes.c[s].y : 0.0f;
+  for (int l = tid; l < k; l += kThreads) {
+    float v = 0.0f;
+    if (l < n_real) {
+      const int s = s_rank[l];
+      if (s < ran) v = lanes.c[s].y;
+    }
+    out_contrib[row + l] = v;
   }
+}
+
+template <int E>
+int launch(const float* mean2d, const float* conic, const float* rgb,
+           const float* opacity, const float* depth, const float* origins,
+           const int* counts, const int* slot_active, float* out_rgb,
+           float* out_trans, float* out_depth, float* out_tdepth,
+           int* out_processed, float* out_contrib, int r, int k, int k_pad,
+           int chunk, cudaStream_t stream) {
+  const size_t smem = (11 * static_cast<size_t>(k_pad) +
+                       static_cast<size_t>(kWarps) * chunk) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        raster_plan_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (r > 0) {
+    raster_plan_kernel<E><<<r, kThreads, smem, stream>>>(
+        mean2d, conic, rgb, opacity, depth, origins, counts, slot_active,
+        out_rgb, out_trans, out_depth, out_tdepth, out_processed,
+        out_contrib, k, k_pad, chunk);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Inputs are contiguous float32
 // (R, K, ...) bins plus origins (R, 2), counts and slot_active (R,) int32;
-// k_pad is the power of two >= max(K, chunk). Returns cudaGetLastError().
+// k_pad is the power of two >= max(K, chunk), at most 4096. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a larger k_pad.
 extern "C" int raster_plan_fused(
     const float* mean2d, const float* conic, const float* rgb,
     const float* opacity, const float* depth, const float* origins,
@@ -141,18 +186,13 @@ extern "C" int raster_plan_fused(
     float* out_trans, float* out_depth, float* out_tdepth,
     int* out_processed, float* out_contrib, int r, int k, int k_pad,
     int chunk, void* stream) {
-  const size_t smem = (12 * static_cast<size_t>(k_pad) +
-                       static_cast<size_t>(kWarps) * chunk) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      raster_plan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (r > 0) {
-    raster_plan_kernel<<<r, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-        mean2d, conic, rgb, opacity, depth, origins, counts, slot_active,
-        out_rgb, out_trans, out_depth, out_tdepth, out_processed,
-        out_contrib, k, k_pad, chunk);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RASTER_PLAN_LAUNCH(E)                                               \
+  launch<E>(mean2d, conic, rgb, opacity, depth, origins, counts,            \
+            slot_active, out_rgb, out_trans, out_depth, out_tdepth,         \
+            out_processed, out_contrib, r, k, k_pad, chunk, s)
+  if (k_pad <= 2048) return RASTER_PLAN_LAUNCH(8);
+  if (k_pad == 4096) return RASTER_PLAN_LAUNCH(16);
+#undef RASTER_PLAN_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }

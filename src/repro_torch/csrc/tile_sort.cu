@@ -31,14 +31,6 @@
 
 namespace {
 
-// float32 -> uint32 whose unsigned order is torch.sort's order of floats.
-__device__ __forceinline__ unsigned int order_bits(float key) {
-  if (isnan(key)) return 0xFFFFFFFFu;
-  if (key == 0.0f) return 0x80000000u;  // -0 ties with +0
-  const unsigned int b = __float_as_uint(key);
-  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-}
-
 // Shared-memory index of element i of a 32-bit array, one word of padding
 // per 32 so that both a warp's consecutive elements and its strided
 // elements t*E + j (E <= 16) fall in distinct banks.
@@ -95,7 +87,7 @@ __global__ void __launch_bounds__(kMaxThreads) tile_sort_kernel(
   for (int j = 0; j < E; ++j) {
     const int p = t * E + j;
     const unsigned int bits =
-        p < k ? order_bits(s_key[pad(p)]) : 0xFFFFFFFFu;
+        p < k ? bitonic::order_bits(s_key[pad(p)]) : 0xFFFFFFFFu;
     x[j] = (static_cast<unsigned long long>(bits) << 32) |
            static_cast<unsigned int>(p);
   }

@@ -76,18 +76,18 @@ def raster_tiles(mean2d, conic, rgb, opacity, depth, origins, counts, *,
 
 
 def preprocess_geom(means, log_scales, quats, opacity, w2c,
-                    intrin: Sequence[float], *, impl: str = "triton"):
+                    intrin: Sequence[float], *, impl: str = "cuda"):
     """Preprocess geometry in the Pallas kernel's layout.
 
     Returns mean2d (N,2), conic (N,3), depth (N,), aux (N,6) = [radius3,
     r_major, r_minor, half_w, half_h, valid], minor_axis (N,2).
-    ``impl="triton"`` goes through the kernel wrapper (its plain version on
+    ``impl="cuda"`` goes through the kernel wrapper (its plain version on
     CPU tensors); ``impl="ref"`` is the oracle.
     """
     if impl == "ref":
         return ref_kernels.preprocess_geom_ref(means, log_scales, quats,
                                                opacity, w2c, intrin)
-    if impl != "triton":
+    if impl != "cuda":
         raise ValueError(f"unknown impl {impl!r}")
     return pallas_layout(_preprocess(means, log_scales, quats, opacity, w2c,
                                      intrin))

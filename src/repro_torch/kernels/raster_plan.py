@@ -3,11 +3,15 @@
 Replaces ``repro/kernels/raster_plan.py::_fused_kernel`` (the Pallas
 kernel behind ``raster_plan_fused``, the reference's default raster on
 its accelerator). The kernel is ``csrc/raster_plan.cu``: one CTA per plan
-slot and one thread per pixel; the slot's lanes are bitonic-sorted by
-(depth, lane) in shared memory with the original lane riding as payload,
-blended front to back in chunks with a CTA-wide early exit, and each
-lane's contribution is reduced in a fixed order and written to its input
-lane. What bounds it and what the design does about it is in the source.
+slot and one thread per pixel; the slot's lanes are sorted by (depth,
+lane) as 64-bit items in registers by the bitonic network of
+``csrc/bitonic.cuh`` (``sort_layout`` says how a slot's row is spread
+over threads; ``network_schedule`` lists the sweeps it runs and the level
+of each), the records are read in input order into their sorted
+positions, blended front to back in chunks with a CTA-wide early exit,
+and each lane's contribution is reduced in a fixed order and stored to
+its input lane. What bounds it and what the design does about it is in
+the source.
 
 Input contract (as the Pallas kernel's): each slot's ``count`` real pairs
 occupy lanes ``[0, count)`` in ANY depth order; later lanes are padding.
@@ -25,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import time
-from typing import Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -44,6 +48,64 @@ def pow2_at_least(n: int) -> int:
     while p < n:
         p *= 2
     return p
+
+
+class SortLayout(NamedTuple):
+    """How ``csrc/raster_plan.cu`` spreads one slot's sort over threads."""
+
+    n: int        # items: max(pow2(count), 32 e)
+    e: int        # items per thread (consecutive positions)
+    threads: int  # n / e threads of the CTA sort; rows of 32 e items: one warp
+
+
+def items_per_thread(k_pad: int) -> int:
+    """E of the kernel instance for rows of ``k_pad`` lanes: 8 up to 2,048,
+    then 16, so that a row stays within the CTA's 256 threads."""
+    return 8 if k_pad <= 2048 else 16
+
+
+def sort_layout(count: int, k_pad: int) -> SortLayout:
+    """The fused kernel's sort of a slot with ``count`` real lanes: positions
+    past ``count`` carry items that sort last, and the row is padded to
+    32 E items so that the shortest rows take one whole warp. Rows of
+    ``count`` 0 (and inactive slots) are not sorted at all."""
+    e = items_per_thread(k_pad)
+    n = max(pow2_at_least(max(count, 1)), 32 * e)
+    return SortLayout(n, e, n // e)
+
+
+def bitonic_sweeps(n: int, e: int) -> List[Tuple[int, int, str]]:
+    """The sweeps ``csrc/bitonic.cuh`` runs on rows of ``n`` items, ``e`` a
+    thread, in order: (span, stride, level) with level "register" (stride
+    < e), "shuffle" (e <= stride < 32 e) or "shared" (stride >= 32 e)."""
+    out = []
+    span = 2
+    while span <= n:
+        stride = span // 2
+        while stride >= 1:
+            level = ("register" if stride < e else
+                     "shuffle" if stride < 32 * e else "shared")
+            out.append((span, stride, level))
+            stride //= 2
+        span *= 2
+    return out
+
+
+def network_schedule(count: int, k_pad: int) -> List[Tuple[int, int, str]]:
+    """The sweeps the fused kernel runs for a slot of ``count`` real lanes
+    (rows of ``k_pad``): those of ``sort_layout(count, k_pad)``'s row;
+    none for an empty slot."""
+    if count <= 0:
+        return []
+    lay = sort_layout(count, k_pad)
+    return bitonic_sweeps(lay.n, lay.e)
+
+
+def smem_bytes(k_pad: int, chunk: int) -> int:
+    """Shared memory of one CTA: the packed records (10 words a lane), the
+    rank of each input lane (1) and the warp partials (8 chunk); the
+    sort's exchange buffer aliases the records."""
+    return (11 * k_pad + 8 * chunk) * 4
 
 
 def _check_chunk(chunk: int) -> None:
@@ -155,6 +217,17 @@ def raster_chunked(mean2d, conic, rgb, opacity, depth, origins, counts, *,
             contrib)
 
 
+def slot_order(depth, counts):
+    """(real, order) of the plain version: ``real`` (R, K) marks lanes below
+    each slot's count (in input and in sorted order alike), ``order`` (R,
+    K) lists each slot's lanes by the stable sort of (depth, lane) with
+    padding keyed +inf: the order the fused kernel blends in."""
+    lane = torch.arange(depth.shape[1], device=depth.device)
+    real = lane[None, :] < counts[:, None]
+    key = torch.where(real, depth, torch.full_like(depth, float("inf")))
+    return real, torch.sort(key, dim=1, stable=True).indices
+
+
 def raster_plan_torch(mean2d, conic, rgb, opacity, depth, origins, counts,
                       slot_active=None, *, chunk: int = 64, tile: int = TILE,
                       work: Optional[dict] = None):
@@ -172,10 +245,7 @@ def raster_plan_torch(mean2d, conic, rgb, opacity, depth, origins, counts,
     counts = torch.where(slot_active, counts.to(torch.int32),
                          torch.zeros_like(counts, dtype=torch.int32))
     k_pad = pow2_at_least(max(k, chunk))
-    lane = torch.arange(k, device=opacity.device)
-    real = lane[None, :] < counts[:, None]               # sorted lanes too
-    key = torch.where(real, depth, torch.full_like(depth, float("inf")))
-    order = torch.sort(key, dim=1, stable=True).indices
+    real, order = slot_order(depth, counts)
 
     def take(x):
         idx = order if x.dim() == 2 else order[..., None].expand_as(x)
@@ -237,7 +307,7 @@ def raster_plan_cuda(mean2d, conic, rgb, opacity, depth, origins, counts,
     if dev.type != "cuda":
         raise ValueError("the fused raster kernel needs CUDA tensors")
     k_pad = pow2_at_least(max(k, chunk))
-    smem = (12 * k_pad + 8 * chunk) * 4
+    smem = smem_bytes(k_pad, chunk)
     if smem > MAX_SMEM:
         raise ValueError(f"K={k} needs {smem} B of shared memory per CTA; "
                          f"the card offers {MAX_SMEM}")

@@ -27,7 +27,8 @@ from typing import List, NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.raster_plan import MAX_SMEM, pow2_at_least
+from repro_torch.kernels.raster_plan import (MAX_SMEM, bitonic_sweeps,
+                                             pow2_at_least)
 from repro_torch.kernels.ref import tile_sort_ref
 
 # Items per thread of a row too long for one warp; 16 past 8192 items,
@@ -84,17 +85,7 @@ def network_schedule(k_pad: int) -> List[Tuple[int, int, str]]:
     "shuffle" (E <= stride < 32 E) or "shared" (stride >= 32 E). The
     network covers ``sort_layout(k_pad).n`` items."""
     lay = sort_layout(k_pad)
-    out = []
-    span = 2
-    while span <= lay.n:
-        stride = span // 2
-        while stride >= 1:
-            level = ("register" if stride < lay.e else
-                     "shuffle" if stride < 32 * lay.e else "shared")
-            out.append((span, stride, level))
-            stride //= 2
-        span *= 2
-    return out
+    return bitonic_sweeps(lay.n, lay.e)
 
 
 def _c_function():

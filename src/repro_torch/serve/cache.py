@@ -16,9 +16,8 @@ cache entry, so the shapes that adapt while serving stay bounded:
 ``ExecutableCache`` holds one entry per key, built lazily, with hit/miss
 counters. In the port an entry is the render callable from
 ``placement.build_render_fn``; nothing is compiled per key, so an
-entry's first-call time ("compile_ms") is first-use cost — the Triton
-JIT and CUDA library loads on the first call of a process, and little
-after that.
+entry's first-call time ("compile_ms") is first-use cost — the CUDA
+library loads on the first call of a process, and little after that.
 """
 from __future__ import annotations
 

@@ -564,7 +564,7 @@ class StreamServer:
         Runs each combination once on an all-masked (count-0) batch.
         In the port a masked frame is not rendered, so this creates the
         entries and their first-call records but moves no first-use cost
-        (kernel loads, Triton JIT) out of the first busy round. Returns
+        (kernel library loads) out of the first busy round. Returns
         wall seconds spent THIS call; ``warmup_seconds`` accumulates.
         Safe mid-serving: the batch is synthesized (``empty_batch``),
         and its scene tuples bypass the bounded ``_stacks`` memo.

@@ -150,7 +150,7 @@ def test_preprocess_geom_plain_vs_reference_ref(small_scene, small_cam):
     args = _geom_inputs(small_scene, small_cam)
     want = jops.preprocess_geom(*args[:5], np.asarray(args[5]), impl="ref")
     got = tops.preprocess_geom(*(P.tensor(a) for a in args[:5]), args[5],
-                               impl="triton")
+                               impl="cuda")
     _assert_geom_tuple(got, want, args)
     got_ref = tops.preprocess_geom(*(P.tensor(a) for a in args[:5]),
                                    args[5], impl="ref")
