@@ -5,8 +5,8 @@
 
 Phases (each prints its own lines; a failed check exits non-zero):
 
-1. Device: the card's name and power limit, the kernels built from
-   ``src/repro_torch`` (one nvcc per ``csrc/*.cu``, all four started
+1. Device: the card's name and power limit, the five kernels built from
+   ``src/repro_torch`` (one nvcc per ``csrc/*.cu``, all five started
    together), their build times and ptxas lines.
 2. Kernels vs their plain PyTorch versions on the card, at the main
    paths' shapes: the first key frame's real (R = 8160, K = 1024) bins
@@ -24,12 +24,18 @@ Phases (each prints its own lines; a failed check exits non-zero):
    int32 ids for the tile sorter (2d, exact, through its counting
    wrapper; also rows with ties, NaN, -0, +-inf, K not a power of two,
    K = 1, 257, 4096 and 16384; each case's layout and its network's
-   sweeps per level: register, warp shuffle, shared memory).
+   sweeps per level: register, warp shuffle, shared memory). 2e: the LDU
+   fill kernel exactly against its plain version (the host scan) on the
+   key frame's bin counts (B = 32) and a warped frame's, at B = 1, 7,
+   33, 64, in its dynamic mode, and on inputs that force every branch
+   (all workloads zero, all equal, one above the cap, none active, sums
+   past 2**24).
    Each kernel's median device time (profiler), its time with the launch
    (CUDA events), the plain version's time, a library call's time where
    one computes the same function, and the least time the card could
    take for the work these inputs need (bytes over 3.35 TB/s or fp32
-   operations over 67 TFLOP/s).
+   operations over 67 TFLOP/s). For the LDU fill also the floor of its
+   design, printed apart: active slots x one dependent step's latency.
 3. The slice: a 10-frame dolly trajectory at 1920x1088 over a
    131,072-Gaussian structured scene (SH degree 3) with capacity 1024,
    chunk 64, window 5, TAIT, DPES, 32 LDU blocks — 2 key frames and 8
@@ -39,6 +45,14 @@ Phases (each prints its own lines; a failed check exits non-zero):
 3b. Culling: the same trajectory at ``cull_threshold=2.0``; sparse frames
    >= 30 dB against the unculled run, strictly fewer sort pairs over the
    sparse frames, and pairs actually culled.
+3c. The paper's accelerator ablation (Figs. 14/15, Tab. I) on phase 3's
+   records and on a ``window=1`` render of the same poses: the model
+   cycles per frame, speedup against ``gpu_like``, utilization and sort
+   stall of ``gpu_like``, ``gscore_like``, ``ld1``, ``ls_gaussian`` and
+   ``recorded``; the tiles whose recorded (device) block differs from
+   the host golden's, with the float32 and float64 caps (a frame that
+   differs must have an integer between them); DPES ``predict_workload`` on the warped frames, held to
+   their records.
 4. Profile of one key and one warped frame (stage spans, idle share).
 5. Serve: ``StreamServer`` over two scenes padded into one 131,072
    bucket (``structured_scene`` 131,072 and ``random_blob_scene``
@@ -49,7 +63,8 @@ Phases (each prints its own lines; a failed check exits non-zero):
    kernel (not the fused one) rendered, that padding rows are invalid,
    the bound on cache keys and the Chrome trace; prints latency,
    frames/s, the B and R histories, first vs steady rounds, peak memory
-   and the device idle share of one profiled round.
+   and the device idle share of one profiled round; the LDU fill kernel
+   launched once per served frame.
 
 The last two lines are the kernels' JSON record and the device record.
 Needs a CUDA GPU; exits non-zero without one.
@@ -83,6 +98,10 @@ BLEND_FLOPS = 17
 # (transform 18, quaternion + scales 40, covariances 50, Jacobian and 2D
 # covariance 50, conic + eigen + radii 40).
 PREPROCESS_FLOPS = 200
+# Dependent cycles each active slot's step of the LDU fill kernel takes
+# at least: the FADD of acc + w, then the FSETP against the cap that
+# decides the next step (4 each; derived, not measured).
+LDU_STEP_CYCLES = 8
 
 N_GAUSSIANS = 131_072
 WIDTH, HEIGHT = 1920, 1088
@@ -193,8 +212,8 @@ def print_occupancy(what, lines, threads, smem):
 
 def phase_device():
     from concurrent.futures import ThreadPoolExecutor
-    from repro_torch.kernels import (preprocess, raster_plan, raster_tile,
-                                     tile_sort)
+    from repro_torch.kernels import (ldu_fill, preprocess, raster_plan,
+                                     raster_tile, tile_sort)
     print("== phase 1: device", flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -205,7 +224,7 @@ def phase_device():
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
-    mods = (preprocess, raster_plan, raster_tile, tile_sort)
+    mods = (preprocess, raster_plan, raster_tile, tile_sort, ldu_fill)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as pool:
         builds = [pool.submit(m.build) for m in mods]
@@ -769,10 +788,172 @@ def phase_tile_sort_kernel(args, flush):
                 library_ms=library_ms)
 
 
-def phase_slice(scene, cam, poses, cfg, key_bins):
-    from repro_torch.core import engine, load_balance, pipeline
+def host_syncs(fn):
+    """Run ``fn`` under torch's CUDA sync debug mode; returns (its result,
+    {where: count} of the operations that made the host wait for the
+    device), each place named by its innermost frame outside the
+    installed packages, with the torch frame that warned."""
+    import traceback
+    import warnings
+    where = {}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if "-packages" not in f.filename
+                and "/lib/python" not in f.filename]
+        at = (f"{os.path.relpath(ours[-1].filename)}:{ours[-1].lineno}"
+              if ours else "?") + f" ({os.path.basename(filename)}:{lineno})"
+        where[at] = where.get(at, 0) + 1
+
+    with warnings.catch_warnings():
+        # Switching the mode on may warn by itself; a call into torch
+        # surfaces that before the recording starts.
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.get_sync_debug_mode()
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, where
+
+
+def ldu_cases(key_bins, warped):
+    """Phase 2e's (name, workload, active, B, mode) cases: the key frame's
+    and a warped frame's real fills, other B, the dynamic fill, and inputs
+    that force every branch of the greedy fill."""
+    tplan, _, bins, _ = key_bins
+    wl, act = bins.count, tplan.slot_active
+    r = wl.shape[0]
+    ones = torch.ones_like(act)
+    spike = torch.ones_like(wl)
+    spike[r // 3] = 10 * r            # above the cap: no block fits it
+    cases = [("key frame", wl, act, 32, "greedy"),
+             ("warped frame", warped[0], warped[1], 32, "greedy")]
+    cases += [(f"key frame B {b}", wl, act, b, "greedy")
+              for b in (1, 7, 33, 64)]
+    cases += [(f"key frame dynamic B {b}", wl, act, b, "dynamic")
+              for b in (7, 32, 33)]
+    cases += [("warped frame dynamic", warped[0], warped[1], 32, "dynamic"),
+              ("all zero", torch.zeros_like(wl), ones, 32, "greedy"),
+              ("all equal", torch.full_like(wl, 100), ones, 32, "greedy"),
+              ("all equal B 33", torch.full_like(wl, 100), ones, 33,
+               "greedy"),
+              ("one slot above the cap", spike, ones, 32, "greedy"),
+              ("sums past 2**24 B 1", torch.full_like(wl, 4097), ones, 1,
+               "greedy"),
+              ("sums past 2**24 B 3", torch.full_like(wl, 4097), ones, 3,
+               "greedy"),
+              ("no slot active", wl, torch.zeros_like(act), 32, "greedy"),
+              ("no slot active dynamic", wl, torch.zeros_like(act), 32,
+               "dynamic")]
+    return cases
+
+
+def warped_fill_input(scene, cam, poses, cfg):
+    """A warped frame's LDU input: frame 1's post-DPES workload and
+    re-render mask over the tiles in Morton order (the order of its plan's
+    slots)."""
+    from repro_torch.core import engine, load_balance
+    step = engine.make_frame_step(scene, cam, cfg)
+    carry = engine.init_carry(cam, poses[0])
+    for f in range(2):
+        carry, (_, rec) = step(carry, poses[f])
+    visit = torch.argsort(load_balance.morton_rank(
+        cam.tiles_x, cam.tiles_y, device=cam.device), stable=True)
+    return rec.sort_pairs[visit].contiguous(), rec.active[visit].contiguous()
+
+
+def phase_ldu_kernel(key_bins, warped, flush, report):
+    from repro_torch.kernels import ldu_fill as kl
+    print("== phase 2e: LDU fill kernel vs its plain version (exact)",
+          flush=True)
+    print_occupancy("ldu_fill_kernel", ptxas_lines(report, "ldu_fill_kernel"),
+                    32, kl.smem_bytes(32))
+    kl.ldu_fill.launches = 0
+    cases = ldu_cases(key_bins, warped)
+    for name, wl, act, b, mode in cases:
+        got = kl.ldu_fill(wl, act, b, mode)
+        want = kl.ldu_fill_host(wl, act, b, mode)
+        torch.cuda.synchronize()
+        n_act = int(act.sum())
+        used = int(torch.unique(got[got >= 0]).numel())
+        extra = ""
+        if mode == "greedy":
+            cap = kl.fill_cap(wl.cpu().numpy().astype(np.float32),
+                              act.cpu().numpy(), b)
+            extra = f", float32 cap {float(cap)!r}"
+        print(f"  {name}: R={wl.shape[0]}, {n_act} active, B={b}, {mode}; "
+              f"{used} blocks used{extra}", flush=True)
+        check(got.dtype == torch.int32 and torch.equal(got, want),
+              f"{name}: block_of equals the plain version exactly")
+    check(kl.ldu_fill.launches == len(cases),
+          f"the wrapper launched the kernel once per call ({len(cases)})")
+    kl.ldu_fill.launches = 0
+    from repro_torch.core import plan
+    tplan = key_bins[0]
+    torch.cuda.synchronize()
+    _, syncs = host_syncs(lambda: plan.schedule_plan(
+        tplan, key_bins[2].count, 32))
+    check(not syncs, f"plan.schedule_plan (the repro.frame/ldu_schedule "
+          f"stage) makes the host wait nowhere (sync debug mode: {syncs})")
+
+    tplan, _, bins, _ = key_bins
+    wl, act = bins.count, tplan.slot_active
+    n_act = int(act.sum())
+    times = {}
+    for name, (w, a) in (("key", (wl, act)), ("warped", warped)):
+        run = lambda: kl.ldu_fill_cuda(w, a, 32)  # noqa: E731,B023
+        times[name] = (kernel_ms(run, "ldu_fill_kernel", 20, flush),
+                       time_ms(run, 20, flush),
+                       time_ms(lambda: kl.ldu_fill_host(w, a, 32), 5, flush),
+                       int(a.sum()))
+        dev, launch, plain, n = times[name]
+        print(f"  {name} frame ({n} active of {w.shape[0]}): kernel "
+              f"{dev:.4f} ms device time (profiler, median of 20), "
+              f"{launch:.4f} ms with its launch (CUDA events, median of 20), "
+              f"plain host scan {plain:.3f} ms (CUDA events, median of 5)",
+              flush=True)
+    dyn = kernel_ms(lambda: kl.ldu_fill_cuda(wl, act, 32, "dynamic"),
+                    "ldu_fill_kernel", 20, flush)
+    print(f"  key frame dynamic fill: kernel {dyn:.4f} ms device time",
+          flush=True)
+    dev_ms, launch_ms, plain_ms, _ = times["key"]
+    # Bound by the card's rates: the workload and the mask read once, the
+    # block ids written once; per active slot an add and a compare.
+    r = wl.shape[0]
+    bound_ms, bound_by = bound(r * (4 + 1 + 4), 2 * n_act)
+    # The kernel places one active slot a step, each step waiting for the
+    # previous one's accumulator: its floor is LDU_STEP_CYCLES a slot at
+    # the card's top SM clock (derived, not measured; not bound_ms).
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    chain_ms = n_act * LDU_STEP_CYCLES / (mhz * 1e6) * 1e3
+    print(f"  bound {bound_ms:.6f} ms ({bound_by}: {r * 9} B); the "
+          f"design's dependency-chain floor {chain_ms:.4f} ms ({n_act} "
+          f"active slots x {LDU_STEP_CYCLES} cycles at {mhz:.0f} MHz; "
+          f"derived); kernel / floor {dev_ms / chain_ms:.2f}", flush=True)
+    return dict(name="ldu_fill", route="cuda",
+                source="src/repro_torch/csrc/ldu_fill.cu",
+                replaces="src/repro/core/load_balance.py:177 (greedy_fill, "
+                         "lax.scan; no Pallas kernel)",
+                max_abs_err=0.0, ms=dev_ms, ms_with_launch=launch_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
+def phase_slice(scene, cam, poses, cfg):
+    from repro_torch.core import engine, pipeline
     from repro_torch.core.metrics import psnr
-    from repro_torch.kernels import preprocess, raster_plan, tile_sort
+    from repro_torch.kernels import (ldu_fill, preprocess, raster_plan,
+                                     tile_sort)
     print("== phase 3: the slice (render_trajectory)", flush=True)
     print(f"  config: {WIDTH}x{HEIGHT} ({cam.num_tiles} tiles), N="
           f"{N_GAUSSIANS} structured_scene sh_degree 3, {N_FRAMES}-frame "
@@ -785,6 +966,7 @@ def phase_slice(scene, cam, poses, cfg, key_bins):
     raster_plan.raster_plan_fused.launches = 0
     preprocess.preprocess_geom.launches = 0
     tile_sort.tile_sort.launches = 0
+    ldu_fill.ldu_fill.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = engine.render_trajectory(scene, cam, poses, cfg)
@@ -792,7 +974,8 @@ def phase_slice(scene, cam, poses, cfg, key_bins):
     total_s = time.perf_counter() - t0
     launches = {"raster_plan_fused": raster_plan.raster_plan_fused.launches,
                 "preprocess_geom": preprocess.preprocess_geom.launches,
-                "tile_sort": tile_sort.tile_sort.launches}
+                "tile_sort": tile_sort.tile_sort.launches,
+                "ldu_fill": ldu_fill.ldu_fill.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"  trajectory (first run, with first-use costs): "
           f"{total_s * 1e3:.1f} ms for {N_FRAMES} frames, "
@@ -801,6 +984,8 @@ def phase_slice(scene, cam, poses, cfg, key_bins):
           f"fused kernel launched once per frame ({N_FRAMES})")
     check(launches["preprocess_geom"] == N_FRAMES,
           f"preprocess kernel launched once per frame ({N_FRAMES})")
+    check(launches["ldu_fill"] == N_FRAMES,
+          f"LDU fill kernel launched once per frame ({N_FRAMES})")
     check(bool(torch.isfinite(res.frames).all()), "all frames finite")
     is_full = res.records.is_full.tolist()
     check(is_full == [f % cfg.window == 0 for f in range(N_FRAMES)],
@@ -830,17 +1015,6 @@ def phase_slice(scene, cam, poses, cfg, key_bins):
     print(f"  frame ms: {[round(t, 3) for t in frame_ms]}", flush=True)
     print(f"  key frame ms median {statistics.median(key_ms):.3f}, warped "
           f"frame ms median {statistics.median(warp_ms):.3f}", flush=True)
-
-    tplan, _, bins, _ = key_bins
-    host = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        load_balance.greedy_fill(bins.count, tplan.slot_active,
-                                 cfg.ldu_blocks)
-        host.append((time.perf_counter() - t0) * 1e3)
-    print(f"  greedy_fill host time (key frame, R={tplan.num_slots}): "
-          f"{statistics.median(host):.3f} ms median of 5", flush=True)
 
     key_cam = cam.with_pose(poses[0])
     fused = pipeline.render_full_frame(scene, key_cam, cfg)[0]
@@ -901,6 +1075,159 @@ def phase_cull(scene, cam, poses, cfg, base):
     check(sum(culled) > 0, f"pairs culled ({sum(culled)})")
 
 
+# The paper's accelerator ablation (Figs. 14/15, Tab. I): the modes of
+# benchmarks/accelerator.py:36-47, copied.
+ACCEL_MODES = {
+    "gpu_like": dict(policy="dynamic", workload_source="raw",
+                     light_to_heavy=False, streaming=False),
+    "gscore_like": dict(policy="round_robin", workload_source="raw",
+                        light_to_heavy=False, streaming=True),
+    "ld1": dict(policy="ls_gaussian", workload_source="dpes",
+                light_to_heavy=False, streaming=True),
+    "ls_gaussian": dict(policy="ls_gaussian", workload_source="dpes",
+                        light_to_heavy=True, streaming=True),
+}
+
+
+def ablation(frames, acfg, what):
+    """Print the accelerator model's ablation over ``frames``; returns
+    {mode: throughput} with ``recorded`` beside the host modes."""
+    from repro_torch.core.streaming import simulate_sequence, throughput
+    rows = {}
+    for mode, kw in list(ACCEL_MODES.items()) + [
+            ("recorded", dict(policy="recorded", streaming=True))]:
+        t0 = time.perf_counter()
+        rows[mode] = throughput(simulate_sequence(frames, acfg, **kw),
+                                acfg.num_blocks)
+        rows[mode]["host_s"] = time.perf_counter() - t0
+    base = rows["gpu_like"]["cycles_per_frame"]
+    print(f"  {what}: model cycles per frame of the simulated accelerator "
+          f"(not card times), {acfg.num_blocks} raster blocks", flush=True)
+    for mode, t in rows.items():
+        print(f"    {mode:12s} cycles/frame {t['cycles_per_frame']:.1f}, "
+              f"speedup vs gpu_like {base / t['cycles_per_frame']:.4f}, "
+              f"utilization {t['utilization']:.6f}, sort stall "
+              f"{t['sort_stall']:.1f}, idle stall {t['idle_stall']:.1f} "
+              f"(host {t['host_s']:.2f} s to simulate)", flush=True)
+    rec, host = rows["recorded"], rows["ls_gaussian"]
+    print(f"    recorded - ls_gaussian: cycles/frame "
+          f"{rec['cycles_per_frame'] - host['cycles_per_frame']:.4f}, "
+          f"utilization {rec['utilization'] - host['utilization']:.3g}",
+          flush=True)
+    return rows
+
+
+def schedule_gap(frames, b, what):
+    """Tiles whose recorded block (the device fill, float32 cap) differs
+    from the host golden ``schedule``'s (float64 cap), per frame, with
+    both caps. Pair counts and block sums are integers below 2**24, so
+    the two fills can decide differently only where an integer lies
+    between the caps; a frame that differs without one fails."""
+    from repro_torch.core.load_balance import golden_cap, schedule
+    from repro_torch.kernels.ldu_fill import fill_cap
+    diffs = []
+    for f, fw in enumerate(frames):
+        gold = schedule(fw.sort_pairs, b, policy="ls_gaussian",
+                        tiles_x=fw.tiles_x, tiles_y=fw.tiles_y,
+                        active=fw.active)
+        d_blk = int((gold.block_of_tile != fw.block_of).sum())
+        d_ord = int((gold.order_in_block != fw.order_in_block).sum())
+        diffs.append(d_blk)
+        act = np.asarray(fw.active, bool)
+        cap32 = float(fill_cap(
+            np.asarray(fw.sort_pairs, np.int32).astype(np.float32), act, b))
+        cap64 = golden_cap(fw.sort_pairs, b, act)
+        straddle = math.floor(cap32) != math.floor(cap64)
+        print(f"    frame {f}: {d_blk} tiles in another block, {d_ord} in "
+              f"another position; cap float32 {cap32!r}, float64 "
+              f"{cap64!r}; an integer between them: {straddle}", flush=True)
+        if d_blk or d_ord:
+            check(straddle, f"{what} frame {f}: the gap can be the cap's "
+                  "rounding (an integer lies between the caps)")
+    print(f"  {what}: {sum(diffs)} tiles in another block than the host "
+          f"golden over {len(frames)} frames", flush=True)
+    return sum(diffs)
+
+
+def dpes_workloads(scene, cam, poses, cfg, records):
+    """DPES ``predict_workload`` on each warped frame's re-render tiles,
+    from the warp of the frame before: predicted against raw pairs, held
+    to the frame's record (raw pairs, and sort pairs = predicted capped
+    at K)."""
+    from repro_torch.core import dpes, engine, intersect, warp
+    from repro_torch.core.pipeline import PAIR_BLOCK
+    from repro_torch.core.projection import preprocess
+    step = engine.make_frame_step(scene, cam, cfg)
+    carry = engine.init_carry(cam, poses[0])
+    for f in range(N_FRAMES):
+        if not bool(records.is_full[f]):
+            st, tgt = carry.state, cam.with_pose(poses[f])
+            w = warp.viewpoint_transform(
+                st.rgb, st.exp_depth, st.trunc_depth, st.source_mask,
+                cam.with_pose(carry.prev_pose), tgt, n0_ratio=cfg.n0_ratio,
+                near=cfg.near)
+            ids = torch.nonzero(records.active[f]).squeeze(1)
+            proj = preprocess(scene, tgt, near=cfg.near)
+            slots = intersect.take_tiles(intersect.make_tile_grid(tgt), ids)
+            n = proj.depth.shape[0]
+            rows = max(1, PAIR_BLOCK // n)
+            parts = []
+            for r0 in range(0, ids.shape[0], rows):
+                blk = intersect.TileSlots(slots.centers[r0:r0 + rows],
+                                          slots.origins[r0:r0 + rows])
+                mask = intersect.tait_stage1_mask(proj, blk) \
+                    & intersect.tait_stage2_keep(proj, blk)
+                parts.append(dpes.predict_workload(
+                    mask, proj.depth, w.dpes_depth[ids[r0:r0 + rows]],
+                    margin=cfg.dpes_margin))
+            pw = dpes.TileWorkload(*(torch.cat(x) for x in zip(*parts)))
+            raw, pred = int(pw.raw.sum()), int(pw.predicted.sum())
+            print(f"    frame {f}: {ids.shape[0]} re-render tiles, raw "
+                  f"pairs {raw}, DPES predicted {pred} "
+                  f"({1 - pred / max(raw, 1):.4f} culled), largest tile "
+                  f"{int(pw.raw.max())} raw / {int(pw.predicted.max())} "
+                  f"predicted", flush=True)
+            check(torch.equal(pw.raw, records.raw_pairs[f][ids])
+                  and torch.equal(torch.clamp_max(pw.predicted,
+                                                  cfg.capacity),
+                                  records.sort_pairs[f][ids]),
+                  f"frame {f}: raw pairs and min(predicted, K) equal the "
+                  "record's raw and sort pairs")
+        carry, _ = step(carry, poses[f])
+
+
+def phase_ablation(scene, cam, poses, cfg, base):
+    """The paper's accelerator ablation on frames the card rendered."""
+    from repro_torch.core import engine
+    from repro_torch.core.streaming import (AcceleratorConfig,
+                                            frameworks_from_stacked)
+    print("== phase 3c: accelerator ablation (Figs. 14/15, Tab. I) on the "
+          "rendered frames", flush=True)
+    acfg = AcceleratorConfig(num_blocks=cfg.ldu_blocks)
+    n_px = cam.width * cam.height
+    frames = frameworks_from_stacked(base.records, cam.tiles_x, cam.tiles_y,
+                                     n_px)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = engine.render_trajectory(scene, cam, poses,
+                                    dataclasses.replace(cfg, window=1))
+    torch.cuda.synchronize()
+    print(f"  window 1 (Tab. I's full frames): {N_FRAMES} key frames in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
+    check(torch.equal(full.frames[0], base.frames[0]),
+          "window 1: frame 0 equals phase 3's key frame")
+    frames_full = frameworks_from_stacked(full.records, cam.tiles_x,
+                                          cam.tiles_y, n_px)
+    out = {}
+    for what, fr in (("window 5 (phase 3)", frames),
+                     ("window 1", frames_full)):
+        out[what] = ablation(fr, acfg, what)
+        out[what]["gap_tiles"] = schedule_gap(fr, acfg.num_blocks, what)
+    print("  DPES on the warped frames (phase 3):", flush=True)
+    dpes_workloads(scene, cam, poses, cfg, base.records)
+    return out
+
+
 def phase_profile(scene, cam, poses, cfg):
     """Where one key frame and one warped frame spend their time."""
     from torch.autograd import DeviceType
@@ -908,6 +1235,12 @@ def phase_profile(scene, cam, poses, cfg):
     from repro_torch.core import engine
     print("== phase 4: profile of one key and one warped frame", flush=True)
     step = engine.make_frame_step(scene, cam, cfg)
+    carry = engine.init_carry(cam, poses[0])
+    for f, kind in ((0, "key"), (1, "warped")):
+        torch.cuda.synchronize()
+        carry, syncs = host_syncs(lambda: step(carry, poses[f])[0])  # noqa: B023
+        print(f"  {kind} frame: host syncs (sync debug mode) "
+              f"{sum(syncs.values())} at {syncs}", flush=True)
     carry = engine.init_carry(cam, poses[0])
     for f, kind in ((0, "key"), (1, "warped")):
         with profile(activities=[ProfilerActivity.CPU,
@@ -961,8 +1294,8 @@ def phase_serve(cam, cfg):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import engine
     from repro_torch.core.projection import preprocess as project
-    from repro_torch.kernels import (preprocess, raster_plan, raster_tile,
-                                     tile_sort)
+    from repro_torch.kernels import (ldu_fill, preprocess, raster_plan,
+                                     raster_tile, tile_sort)
     from repro_torch.obs.trace import validate_chrome_trace
     from repro_torch.scenes.synthetic import (random_blob_scene,
                                               structured_scene)
@@ -1013,6 +1346,7 @@ def phase_serve(cam, cfg):
     raster_plan.raster_plan_fused.launches = 0
     preprocess.preprocess_geom.launches = 0
     tile_sort.tile_sort.launches = 0
+    ldu_fill.ldu_fill.launches = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1022,7 +1356,8 @@ def phase_serve(cam, cfg):
     launches = {"raster_tile": raster_tile.raster_tile.launches,
                 "raster_plan_fused": raster_plan.raster_plan_fused.launches,
                 "preprocess_geom": preprocess.preprocess_geom.launches,
-                "tile_sort": tile_sort.tile_sort.launches}
+                "tile_sort": tile_sort.tile_sort.launches,
+                "ldu_fill": ldu_fill.ldu_fill.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"  run: {total_s:.3f} s, {report['rounds']} rounds "
           f"({report['busy_rounds']} busy), {report['frames']} frames, "
@@ -1033,6 +1368,9 @@ def phase_serve(cam, cfg):
           "every stream finished (6 of 6)")
     check(launches["raster_tile"] > 0 and launches["raster_plan_fused"] == 0,
           "the tile raster kernel rendered, the fused kernel did not")
+    check(launches["ldu_fill"] == launches["raster_tile"] == report["frames"],
+          f"the LDU fill kernel launched once per served frame "
+          f"({report['frames']})")
     n_keys = report["cache"]["distinct_executables"]
     check(n_keys <= len(scfg.b_buckets) * len(scfg.r_buckets),
           f"{n_keys} cache keys <= {len(scfg.b_buckets)} x "
@@ -1150,9 +1488,12 @@ def main():
                phase_preprocess_kernel(scene, cam, flush,
                                        reports["preprocess"]),
                phase_tile_raster_kernel(key_bins[3], flush),
-               phase_tile_sort_kernel(key_bins[3], flush)]
-    launches, base = phase_slice(scene, cam, poses, cfg, key_bins)
+               phase_tile_sort_kernel(key_bins[3], flush),
+               phase_ldu_kernel(key_bins, warped_fill_input(
+                   scene, cam, poses, cfg), flush, reports["ldu_fill"])]
+    launches, base = phase_slice(scene, cam, poses, cfg)
     phase_cull(scene, cam, poses, cfg, base)
+    phase_ablation(scene, cam, poses, cfg, base)
     phase_profile(scene, cam, poses, cfg)
     del key_bins, base
     serve_launches = phase_serve(cam, cfg)
@@ -1163,7 +1504,9 @@ def main():
     launches["raster_tile"] = serve_launches["raster_tile"]
     launches["tile_sort"] += serve_launches["tile_sort"]
     print(f"tile_sort launches on the main paths: trajectory + serve = "
-          f"{launches['tile_sort']}", flush=True)
+          f"{launches['tile_sort']}; ldu_fill launches: trajectory "
+          f"{launches['ldu_fill']}, serve {serve_launches['ldu_fill']}",
+          flush=True)
     for k in kernels:
         k["launches"] = launches[k["name"]]
 

@@ -1,9 +1,11 @@
 """Rasterization orchestrator: tiles in, full-frame images out (port of
-``repro/core/raster.py``; ``render_oracle`` is not ported yet).
+``repro/core/raster.py``).
 
 ``render_plan_slots`` rasterizes only a TilePlan's R compacted slots and
 scatters the tile images back into the full frame (untouched tiles read
 as empty: rgb 0, T = 1). ``render_from_bins`` keeps the dense (T,) layout.
+``render_oracle`` is the brute-force check of both: every pixel blends
+every Gaussian in one global depth order.
 """
 from __future__ import annotations
 
@@ -12,10 +14,11 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core import binning
-from repro_torch.core.camera import TILE
+from repro_torch.core.camera import TILE, Camera
 from repro_torch.core.intersect import TileGrid
 from repro_torch.core.projection import ProjectedGaussians
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import ALPHA_MAX, ALPHA_MIN, T_EPS
 
 
 class RenderOutput(NamedTuple):
@@ -138,3 +141,55 @@ def render_plan_slots(proj: ProjectedGaussians, bins: binning.TileBins,
         processed_pairs=proc_all, lane_contrib=contrib_s,
         gauss_contrib=_gauss_contrib(proj, bins, contrib_s) if contrib
         else None)
+
+
+def render_oracle(proj: ProjectedGaussians, cam: Camera) -> RenderOutput:
+    """Brute-force per-pixel blend over ALL Gaussians, depth-sorted globally.
+
+    O(H*W*N), one Gaussian at a time — for small test scenes only.
+    """
+    n = proj.depth.shape[0]
+    key = torch.where(proj.valid, proj.depth, float("inf"))
+    order = torch.argsort(key, stable=True)
+    opac = torch.where(proj.valid[order], proj.opacity[order], 0.0)
+    dev = proj.depth.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    u = torch.arange(cam.width, **f32) + 0.5
+    v = torch.arange(cam.height, **f32) + 0.5
+    py, px = torch.meshgrid(v, u, indexing="ij")
+    px, py = px.reshape(-1), py.reshape(-1)
+    p = cam.width * cam.height
+    color = torch.zeros((p, 3), **f32)
+    trans = torch.ones((p,), **f32)
+    done = torch.zeros((p,), dtype=torch.bool, device=dev)
+    dacc = torch.zeros((p,), **f32)
+    wacc = torch.zeros((p,), **f32)
+    tdepth = torch.zeros((p,), **f32)
+    for m, con, c, o, d in zip(proj.mean2d[order], proj.conic[order],
+                               proj.rgb[order], opac, proj.depth[order]):
+        dx = px - m[0]
+        dy = py - m[1]
+        power = -0.5 * (con[0] * dx * dx + con[2] * dy * dy) \
+            - con[1] * dx * dy
+        alpha = torch.clamp_max(o * torch.exp(power), ALPHA_MAX)
+        alpha = torch.where(alpha >= ALPHA_MIN, alpha, 0.0)
+        test_t = trans * (1.0 - alpha)
+        trigger = (alpha > 0.0) & (test_t < T_EPS)   # sticky done (CUDA)
+        blend = (alpha > 0.0) & ~done & ~trigger
+        w = torch.where(blend, alpha * trans, 0.0)
+        color = color + w[:, None] * c[None, :]
+        dacc = dacc + w * d
+        wacc = wacc + w
+        tdepth = torch.where(blend, torch.maximum(tdepth, d), tdepth)
+        trans = torch.where(blend, test_t, trans)
+        done = done | trigger
+    h, w = cam.height, cam.width
+    n_tiles = (h // TILE) * (w // TILE)
+    return RenderOutput(
+        rgb=color.reshape(h, w, 3), transmittance=trans.reshape(h, w),
+        exp_depth=(dacc / torch.clamp_min(wacc, 1e-8)).reshape(h, w),
+        trunc_depth=tdepth.reshape(h, w),
+        processed_pairs=torch.zeros((n_tiles,), dtype=torch.int32,
+                                    device=dev),
+        lane_contrib=torch.zeros((n_tiles, 1), **f32),
+        gauss_contrib=torch.zeros((n,), **f32))

@@ -4,11 +4,12 @@ CCU (preprocess), VTU (warp), the shared GSU sorter and ``num_blocks``
 parallel VRU raster blocks. Streaming mode lets each unit free-run into
 the next frame; non-streaming inserts a frame barrier.
 
-Host-side numpy, fed from the renderer's ``FrameRecord``s. Only
-``policy="recorded"`` is ported — it replays the LDU schedule the
+Host-side numpy, fed from the renderer's ``FrameRecord``s.
+``policy="recorded"`` (the default here) replays the LDU schedule the
 renderer recorded, which is what the serve loop's ``sim_latency`` report
-uses; the host re-derived policies need ``load_balance.schedule`` (the
-numpy golden), which is not ported yet (ROADMAP.md).
+uses; the other policies re-derive the schedule on the host through the
+numpy golden ``load_balance.schedule`` and reproduce the paper's
+ablation (Figs. 14/15, Tab. I).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from repro_torch.core.load_balance import Schedule
+from repro_torch.core.load_balance import Schedule, morton_order, schedule
 from repro_torch.interop import to_numpy
 
 
@@ -155,18 +156,22 @@ def _simulate_raster(work: FrameWork, sched: Schedule,
 
 def simulate_sequence(frames: Sequence[FrameWork], cfg: AcceleratorConfig,
                       *, policy: str = "recorded",
+                      workload_source: str = "dpes",
+                      light_to_heavy: bool = True,
                       streaming: bool = True) -> List[FrameTiming]:
     """Simulate a frame sequence; returns per-frame timings.
 
-    ``policy="recorded"`` serves the LDU schedule the renderer recorded
-    in each FrameRecord (requires matching ``cfg.num_blocks``); the
-    reference's host policies ("ls_gaussian", "round_robin", ...) raise
-    until ``load_balance.schedule`` is ported.
+    policy/workload_source/light_to_heavy reproduce the paper's ablation:
+      - GSCore-like baseline : policy="round_robin", workload_source="raw",
+                               light_to_heavy=False
+      - + LD1 (inter-block)  : policy="ls_gaussian", light_to_heavy=False
+      - + LD2 (intra-block)  : light_to_heavy=True (full LS-Gaussian)
+      - recorded             : policy="recorded" (the default) — serve the
+                               LDU schedule the plan-driven renderer
+                               recorded in the FrameRecord (no host
+                               re-derivation; requires matching
+                               cfg.num_blocks)
     """
-    if policy != "recorded":
-        raise NotImplementedError(
-            f"policy {policy!r} needs load_balance.schedule (the numpy "
-            "golden), which is not ported yet; see ROADMAP.md")
     timings: List[FrameTiming] = []
     ccu_free = 0.0
     vtu_free = 0.0
@@ -183,23 +188,36 @@ def simulate_sequence(frames: Sequence[FrameWork], cfg: AcceleratorConfig,
         prep_end = max(ccu_end, vtu_end)
         ccu_free, vtu_free = ccu_end, vtu_end
 
-        if work.block_of is None or work.order_in_block is None:
-            raise ValueError(
-                "policy='recorded' needs FrameWork.block_of / "
-                "order_in_block from the plan-driven renderer")
-        if work.num_blocks and work.num_blocks != cfg.num_blocks:
-            raise ValueError(
-                f"recorded schedule was built for {work.num_blocks} "
-                f"blocks but the simulator has {cfg.num_blocks}")
-        if np.max(work.block_of, initial=-1) >= cfg.num_blocks:
-            raise ValueError(
-                f"recorded schedule assigns block "
-                f"{int(np.max(work.block_of))} but the simulator only "
-                f"has {cfg.num_blocks} blocks")
-        sched = Schedule(
-            block_of_tile=np.asarray(work.block_of, np.int64),
-            order_in_block=np.asarray(work.order_in_block, np.int64),
-            num_blocks=cfg.num_blocks)
+        if policy == "recorded":
+            if work.block_of is None or work.order_in_block is None:
+                raise ValueError(
+                    "policy='recorded' needs FrameWork.block_of / "
+                    "order_in_block from the plan-driven renderer")
+            if work.num_blocks and work.num_blocks != cfg.num_blocks:
+                raise ValueError(
+                    f"recorded schedule was built for {work.num_blocks} "
+                    f"blocks but the simulator has {cfg.num_blocks}")
+            if np.max(work.block_of, initial=-1) >= cfg.num_blocks:
+                raise ValueError(
+                    f"recorded schedule assigns block "
+                    f"{int(np.max(work.block_of))} but the simulator only "
+                    f"has {cfg.num_blocks} blocks")
+            sched = Schedule(
+                block_of_tile=np.asarray(work.block_of, np.int64),
+                order_in_block=np.asarray(work.order_in_block, np.int64),
+                num_blocks=cfg.num_blocks)
+        else:
+            # Without DPES the LDU only knows raw (pre-cull) pair counts;
+            # with it, post-cull counts are an accurate raster predictor.
+            wl = work.sort_pairs if workload_source == "dpes" \
+                else work.raw_pairs
+            sched = schedule(np.asarray(wl), cfg.num_blocks, policy=policy,
+                             tiles_x=work.tiles_x, tiles_y=work.tiles_y,
+                             active=np.asarray(work.active))
+            if policy == "ls_gaussian" and not light_to_heavy:
+                # strip the intra-block reordering: arrival (Morton) order
+                sched = dataclasses.replace(
+                    sched, order_in_block=_arrival_order(sched, work))
 
         frame_end, gsu_free, vru_free, t = _simulate_raster(
             work, sched, cfg, prep_end, gsu_free, vru_free)
@@ -210,6 +228,16 @@ def simulate_sequence(frames: Sequence[FrameWork], cfg: AcceleratorConfig,
             ccu_free = vtu_free = gsu_free = frame_end
             vru_free = np.full(cfg.num_blocks, frame_end)
     return timings
+
+
+def _arrival_order(sched: Schedule, work: FrameWork) -> np.ndarray:
+    order = np.zeros_like(sched.order_in_block)
+    visit = morton_order(work.tiles_x, work.tiles_y)
+    for j in range(sched.num_blocks):
+        ids = [tid for tid in visit if sched.block_of_tile[tid] == j]
+        for pos, tid in enumerate(ids):
+            order[tid] = pos
+    return order
 
 
 def throughput(timings: Sequence[FrameTiming],

@@ -166,3 +166,10 @@ def inpaint(rgb: torch.Tensor, filled: torch.Tensor, *,
         img = torch.where(filled[..., None], rgb, fill_val)
         wgt = torch.maximum(wgt, (den[..., :1] > 0).to(torch.float32))
     return img
+
+
+def pixel_warp_fill(warp: WarpResult, full_rgb: torch.Tensor) -> torch.Tensor:
+    """PWSR baseline (Potamoi-style): keep every warped pixel, fill only the
+    missing ones with freshly rendered values. Quality-only baseline for
+    the paper's Fig. 7 — it still pays full preprocess + sort."""
+    return torch.where(warp.filled[..., None], warp.rgb, full_rgb)

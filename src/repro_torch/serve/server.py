@@ -12,9 +12,11 @@ device closes the round, and all groups' carries commit after it.
 
 Overlap: the reference dispatches every group asynchronously and waits
 once, so one bucket's device work overlaps the next group's host work.
-In the port each frame's LDU schedule (``load_balance.greedy_fill``)
-copies the frame's workload to the host, so every frame syncs and the
-groups of a round run one after another, host and device in turn.
+In the port every frame still syncs the host once, where the intersect
+lists the plan's active slots (``torch.nonzero`` in
+``pipeline.intersect_and_bin``), so the groups of a round run one after
+another, host and device in turn. The LDU schedule itself runs on the
+device (``kernels/ldu_fill.py``).
 
 Scenes come from a ``SceneRegistry`` (serve/scenes.py): pass one with
 scenes registered, or pass a bare ``GaussianScene`` and the server
