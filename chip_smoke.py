@@ -65,11 +65,31 @@ Phases (each prints its own lines; a failed check exits non-zero):
    frames/s, the B and R histories, first vs steady rounds, peak memory
    and the device idle share of one profiled round; the LDU fill kernel
    launched once per served frame.
+6. LM serving (the renderer's tensors freed first): yi-9b at its
+   published width and depth in bfloat16 (8.83 B parameters, random
+   weights from a seed). ``launch/serve.serve`` at the launcher's
+   defaults (8 requests, 4 slots, prompt 16, max_new 16, max_seq 64):
+   every request finishes; tok/s and peak memory. The serve loop's
+   decode step timed alone (median of 20 after warm-up, CUDA events)
+   against its bound (weight + cache bytes over 3.35 TB/s), and one step
+   profiled (kernel time, launches, idle share).
+   ``serve_step.greedy_generate`` at batch 2 x 2,048 prompt, 16 new
+   tokens, through the flash prefill. ``decode_step`` against
+   ``forward``'s last position, gated at LM_BF16_GATE x std(logits),
+   and the same decode one position early shown to fail that gate.
+6b. The four registered configs (yi-9b, starcoder2-7b, minicpm3-4b,
+   moonshot-v1-16b-a3b) at full width, depth cut to 4 layers, float32
+   with TF32 off: prefill -> decode, ``attn_impl`` "flash" (also with
+   ``causal_skip``) against "sdpa" on a 2,048 prompt, and three decode
+   steps at batch 4 (moonshot: the capped MoE decode dispatch), each
+   gated at LM_F32_GATE x std(logits). This slice adds no kernel: the
+   reference computes attention in jnp, outside any Pallas kernel.
 
 The last two lines are the kernels' JSON record and the device record.
 Needs a CUDA GPU; exits non-zero without one.
 """
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -1463,6 +1483,279 @@ def phase_serve(cam, cfg):
     return launches
 
 
+# Phase 6: the LM serving harness. yi-9b at its published width and
+# depth in bfloat16, then the four registered configs at full width cut
+# to LM_CHECK_LAYERS layers in float32.
+LM_ARCHS = ("yi-9b", "starcoder2-7b", "minicpm3-4b", "moonshot-v1-16b-a3b")
+LM_CHECK_LAYERS = 4
+LM_LONG_PROMPT = 2048
+# Gate on max |decode_step - forward| over the logits' standard deviation.
+# bfloat16: the two paths round different intermediates (other GEMM
+# shapes, a masked 16- vs 15-position softmax) through 48 layers, each
+# rounding up to 2^-9 relative; a one-position cache error must stay far
+# above the gate (phase 6 prints it beside). float32 without TF32: sums
+# in another order only.
+LM_BF16_GATE = 0.25
+LM_F32_GATE = 1e-3
+
+
+class CallCounter:
+    """Count calls of ``module.name`` inside the ``with`` block."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, 0
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def spy(*args, **kwargs):
+            self.calls += 1
+            return self.real(*args, **kwargs)
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def lm_bytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def logits_gate(what, got, want, gate):
+    """Check max |got - want| <= ``gate`` x std(want), all finite."""
+    got, want = got.float(), want.float()
+    finite = bool(torch.isfinite(got).all() and torch.isfinite(want).all())
+    diff = float((got - want).abs().max())
+    std = float(want.std())
+    ratio = diff / std
+    check(finite and ratio <= gate, f"{what}: logits finite, max|d| "
+          f"{diff:.4g}, std {std:.4g}, max|d|/std {ratio:.3g} <= {gate}")
+
+
+def free_cuda():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_lm_full(smi, arch="yi-9b"):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.train import serve_step as S
+    cfg = get_config(arch)
+    print(f"== phase 6: LM serving, {arch} at its published width and "
+          f"depth, {cfg.dtype} ({smi})", flush=True)
+    print(f"  {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads / {cfg.num_kv_heads} kv heads, head_dim "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}; memory in use before the phase "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+
+    # launch/serve.serve at the launcher's defaults.
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    out = serve(cfg, batch_slots=4, max_seq=64, n_requests=8,
+                prompt_len=16, max_new=16, seed=SEED)
+    peak_serve = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  serve (8 requests, 4 slots, prompt 16, max_new 16, max_seq "
+          f"64): {out}; peak memory {peak_serve:.2f} GB", flush=True)
+    check(out["requests_done"] == 8 and out["decode_steps"] == 62,
+          "every request finished (8 of 8) in 62 decode steps")
+    free_cuda()
+
+    # The serve loop's decode step, timed alone (same weights: one seed).
+    params = M.init_params(cfg, seed=SEED)
+    weight_b = lm_bytes(params.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cache = M.init_cache(cfg, 4, 64)
+    cache_b = lm_bytes(cache.kv)
+    tok = torch.randint(0, cfg.vocab_size, (4, 1), generator=gen,
+                        device="cuda")
+    times = []
+    for i in range(24):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, cache = M.decode_step(params, tok, cache, cfg)
+        end.record()
+        end.synchronize()
+        if i >= 4:                                 # after warm-up
+            times.append(start.elapsed_time(end))
+        tok = torch.argmax(logits[:, 0], -1, keepdim=True)
+    check(bool(torch.isfinite(logits).all()), "decode-step logits finite")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = M.decode_step(params, tok, cache, cfg)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy_ms, n_kernels, idle = device_split(prof.events(), wall)
+    step_ms = statistics.median(times)
+    bound_ms = (weight_b + cache_b) / HBM_BYTES_PER_S * 1e3
+    print(f"  decode step (batch 4, max_seq 64): median {step_ms:.3f} ms "
+          f"over {len(times)} steps after 4 warm-up (CUDA events; "
+          f"min {min(times):.3f}, max {max(times):.3f}); bound "
+          f"{bound_ms:.3f} ms = ({weight_b / 1e9:.3f} GB weights + "
+          f"{cache_b / 1e6:.2f} MB cache) / {HBM_BYTES_PER_S / 1e12:.2f} "
+          f"TB/s; {bound_ms / step_ms:.3f} of the bound; "
+          f"{4 / step_ms * 1e3:.1f} tok/s at batch 4", flush=True)
+    print(f"  one decode step profiled: wall {wall:.3f} ms (profiler on), "
+          f"kernels {busy_ms:.3f} ms over {n_kernels} launches "
+          f"({bound_ms / busy_ms:.3f} of the bound), device idle share "
+          f"{idle:.3f}", flush=True)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
+                                )[:5]:
+        print(f"    {ms:8.3f} ms {n:5d} x {name[:90]}", flush=True)
+    del cache, logits
+    free_cuda()
+
+    # greedy_generate at batch 2 x 2,048 prompt: the prefill takes flash.
+    prompt = torch.randint(0, cfg.vocab_size, (2, LM_LONG_PROMPT),
+                           generator=gen, device="cuda")
+    for _ in range(2):                  # the second prefill is timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        S.prefill(params, {"tokens": prompt}, cfg,
+                  max_seq=LM_LONG_PROMPT + 16)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    with CallCounter(L, "flash_attention") as flash:
+        t0 = time.perf_counter()
+        ids = S.greedy_generate(params, prompt, cfg, max_new=16,
+                                max_seq=LM_LONG_PROMPT + 16)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+    peak_gen = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  greedy_generate (batch 2, prompt {LM_LONG_PROMPT}, 16 new): "
+          f"{gen_s:.3f} s ({32 / gen_s:.1f} new tok/s, prefill included; "
+          f"a prefill alone {prefill_s:.3f} s, "
+          f"{2 * LM_LONG_PROMPT / prefill_s:.0f} prompt tok/s), peak memory "
+          f"{peak_gen:.2f} GB; first ids {ids[:, :6].tolist()}", flush=True)
+    check(tuple(ids.shape) == (2, 16) and bool(
+        ((ids >= 0) & (ids < cfg.vocab_size)).all()),
+        "greedy_generate gave (2, 16) ids in the vocabulary")
+    check(flash.calls == cfg.num_layers,
+          f"the prefill took the flash path in every layer ({flash.calls})")
+    del ids
+    free_cuda()
+
+    # decode_step against forward's last position (tests/test_archs_smoke.py).
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen,
+                         device="cuda")
+    full = M.forward(params, {"tokens": toks}, cfg)[0][:, -1]
+    _, cache = S.prefill(params, {"tokens": toks[:, :-1]}, cfg, max_seq=16)
+    dec, _ = M.decode_step(params, toks[:, -1:], cache, cfg)
+    logits_gate(f"decode_step vs forward ({cfg.dtype}, batch 2, position "
+                f"16)", dec[:, 0], full, LM_BF16_GATE)
+    # The same decode one position early (it overwrites the prompt's last
+    # cache row): the gate must separate such a fault.
+    _, cache = S.prefill(params, {"tokens": toks[:, :-1]}, cfg, max_seq=16)
+    off, _ = M.decode_step(params, toks[:, -1:], cache._replace(index=14),
+                           cfg)
+    off_ratio = float((off[:, 0].float() - full.float()).abs().max()
+                      / full.float().std())
+    check(off_ratio > LM_BF16_GATE,
+          f"a decode one position early is off by {off_ratio:.3g} std, "
+          f"above the gate")
+    del params, full, dec, off, cache
+    free_cuda()
+    return {"tok_per_s": out["tok_per_s"], "step_ms": step_ms,
+            "bound_ms": bound_ms, "peak_gb": peak_serve}
+
+
+def phase_lm_checks():
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models.sharding_hooks import set_hooks
+    from repro_torch.train import serve_step as S
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"== phase 6b: the four configs at full width, depth cut to "
+          f"{LM_CHECK_LAYERS} layers (so that all four fit the run's time),"
+          f" float32; TF32 off (torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}, float32 matmul "
+          f"precision {torch.get_float32_matmul_precision()!r}); each gate "
+          f"is max|d| <= {LM_F32_GATE} x std(logits)", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for arch in LM_ARCHS:
+        cfg = dataclasses.replace(get_config(arch),
+                                  num_layers=LM_CHECK_LAYERS,
+                                  dtype="float32")
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, seed=SEED)
+        print(f"  {arch}: {lm_bytes(params.parameters()) / 1e9:.2f} GB of "
+              f"weights ({cfg.attention}, {cfg.family}, mlp "
+              f"{cfg.mlp_type})", flush=True)
+
+        # 1. prefill -> decode (forward against _pad_cache_seq +
+        # decode_step), batch 2, position 16.
+        toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen,
+                             device="cuda")
+        full = M.forward(params, {"tokens": toks}, cfg)[0][:, -1]
+        _, _, cache = M.forward(params, {"tokens": toks[:, :-1]}, cfg,
+                                build_cache=True)
+        cache = S._pad_cache_seq(cache, 32)
+        dec, _ = M.decode_step(params, toks[:, -1:], cache, cfg)
+        logits_gate(f"{arch} prefill->decode", dec[:, 0], full, LM_F32_GATE)
+
+        # 2. attn_impl "flash" (and with causal_skip) against "sdpa" on a
+        # 2,048 prompt.
+        long = torch.randint(0, cfg.vocab_size, (1, LM_LONG_PROMPT),
+                             generator=gen, device="cuda")
+        set_hooks({"attn_impl": "sdpa"})
+        dense = M.forward(params, {"tokens": long}, cfg)[0]
+        for flags in ({"attn_impl": "flash"},
+                      {"attn_impl": "flash", "causal_skip": True}):
+            set_hooks(flags)
+            with CallCounter(L, "flash_attention") as flash:
+                got = M.forward(params, {"tokens": long}, cfg)[0]
+            check(flash.calls == LM_CHECK_LAYERS,
+                  f"{arch} {flags}: flash in every layer")
+            logits_gate(f"{arch} {flags} vs sdpa ({LM_LONG_PROMPT} "
+                        f"positions)", got, dense, LM_F32_GATE)
+            del got
+        set_hooks({})
+        del dense
+
+        # 3. decode at batch 4 (moonshot: the capped MoE decode dispatch),
+        # three steps against the forward over the whole sequence.
+        toks = torch.randint(0, cfg.vocab_size, (4, 19), generator=gen,
+                             device="cuda")
+        full = M.forward(params, {"tokens": toks}, cfg)[0]
+        _, cache = S.prefill(params, {"tokens": toks[:, :16]}, cfg,
+                             max_seq=32)
+        with CallCounter(L, "_moe_decode_dispatch") as moe:
+            for i in range(16, 19):
+                dec, cache = M.decode_step(params, toks[:, i:i + 1], cache,
+                                           cfg)
+                logits_gate(f"{arch} decode batch 4, position {i + 1}",
+                            dec[:, 0], full[:, i], LM_F32_GATE)
+        if cfg.family == "moe":
+            check(moe.calls == 3 * LM_CHECK_LAYERS,
+                  f"the MoE decode dispatch ran in every layer (factor "
+                  f"{cfg.moe_decode_capacity_factor}, capacity "
+                  f"{L.decode_capacity(cfg, 4)} of 4 tokens x "
+                  f"{cfg.experts_per_token} experts)")
+        print(f"  {arch}: {time.perf_counter() - t0:.2f} s", flush=True)
+        del params, full, dec, cache
+        free_cuda()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA GPU (torch.cuda.is_available() is "
@@ -1509,6 +1802,15 @@ def main():
           flush=True)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+
+    del scene, cam, flush, poses
+    free_cuda()
+    lm = phase_lm_full(smi)
+    phase_lm_checks()
+    print(f"phase 6 summary: yi-9b bf16 serve {lm['tok_per_s']:.1f} tok/s, "
+          f"decode step {lm['step_ms']:.3f} ms against a "
+          f"{lm['bound_ms']:.3f} ms bound, peak memory {lm['peak_gb']:.2f} "
+          f"GB ({smi})", flush=True)
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

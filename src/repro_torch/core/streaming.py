@@ -155,7 +155,7 @@ def _simulate_raster(work: FrameWork, sched: Schedule,
 
 
 def simulate_sequence(frames: Sequence[FrameWork], cfg: AcceleratorConfig,
-                      *, policy: str = "recorded",
+                      *, policy: str = "ls_gaussian",
                       workload_source: str = "dpes",
                       light_to_heavy: bool = True,
                       streaming: bool = True) -> List[FrameTiming]:
@@ -166,8 +166,8 @@ def simulate_sequence(frames: Sequence[FrameWork], cfg: AcceleratorConfig,
                                light_to_heavy=False
       - + LD1 (inter-block)  : policy="ls_gaussian", light_to_heavy=False
       - + LD2 (intra-block)  : light_to_heavy=True (full LS-Gaussian)
-      - recorded             : policy="recorded" (the default) — serve the
-                               LDU schedule the plan-driven renderer
+      - recorded             : policy="recorded" — serve the LDU
+                               schedule the plan-driven renderer
                                recorded in the FrameRecord (no host
                                re-derivation; requires matching
                                cfg.num_blocks)

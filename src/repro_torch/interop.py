@@ -1,14 +1,14 @@
 """Carry weights and state into and out of the port as numpy arrays.
 
-The reference's scenes, cameras and frame states reach the port as
-numpy arrays (``np.asarray`` on each field), so the port never sees an
-object of another framework; ``to_numpy`` converts the port's results
-back for comparison.
+The reference's scenes, cameras, frame states, LM parameter trees and
+decode caches reach the port as numpy arrays (``np.asarray`` on each
+field), so the port never sees an object of another framework;
+``to_numpy`` converts the port's results back for comparison.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -17,6 +17,8 @@ from repro_torch import resolve_device
 from repro_torch.core.camera import Camera
 from repro_torch.core.gaussians import GaussianScene
 from repro_torch.core.pipeline import FrameState
+from repro_torch.models import layers as L
+from repro_torch.models import model as M
 
 
 def _tensor(x, dtype, dev) -> torch.Tensor:
@@ -52,6 +54,83 @@ def frame_state_from_numpy(rgb, exp_depth, trunc_depth, source_mask,
         frame_idx=_tensor(frame_idx, torch.int32, dev),
         contrib=None if contrib is None
         else _tensor(contrib, torch.float32, dev))
+
+
+def _leaf(x, dev) -> torch.Tensor:
+    """One numpy leaf as a tensor of the same dtype. ``np.asarray`` gives
+    a bfloat16 leaf as an ``ml_dtypes`` array, which ``torch.tensor``
+    rejects; it passes through float32, which holds bfloat16 exactly."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.astype(np.float32),
+                            device=dev).to(torch.bfloat16)
+    return torch.tensor(a, device=dev)
+
+
+def _flatten(tree, prefix="") -> Iterator[Tuple[str, Any]]:
+    """(dotted path, leaf) of nested dicts and lists."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flatten(v, f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flatten(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def _unstack(tree, i: int):
+    """Layer ``i`` of a tree whose leaves are stacked on axis 0."""
+    if isinstance(tree, dict):
+        return {k: _unstack(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def lm_params_from_numpy(tree: Dict[str, Any], cfg, *,
+                         device="cuda") -> L.Params:
+    """The reference's ``init_params`` tree as the port's parameters.
+
+    Takes either layer layout: ``layers`` as one dict whose leaves are
+    stacked on axis 0 (``scan_layers=True``) or as a list of per-layer
+    dicts (``scan_layers=False``). Every leaf keeps its dtype (the MoE
+    router stays float32 under bfloat16); a name, shape or dtype that
+    does not match the port's layout for ``cfg`` raises ValueError.
+    """
+    dev = resolve_device(device)
+    params = M.empty_params(cfg, device=dev)
+    layers = tree["layers"]
+    if isinstance(layers, dict):
+        layers = [_unstack(layers, i) for i in range(cfg.num_layers)]
+    flat = dict(_flatten(dict(tree, layers=list(layers))))
+    want = dict(params.named_parameters())
+    if set(flat) != set(want):
+        raise ValueError(
+            f"parameter names differ from the port's layout for {cfg.name}:"
+            f" missing {sorted(set(want) - set(flat))}, unexpected "
+            f"{sorted(set(flat) - set(want))}")
+    for name, p in want.items():
+        t = _leaf(flat[name], dev)
+        if t.shape != p.shape or t.dtype != p.dtype:
+            raise ValueError(
+                f"{name}: got {tuple(t.shape)} {t.dtype}, the port's layout "
+                f"has {tuple(p.shape)} {p.dtype}")
+        p.data = t
+    return params
+
+
+def decode_cache_from_numpy(cache, *, device="cuda") -> M.DecodeCache:
+    """The reference's ``DecodeCache`` (KV or MLA) as the port's; the
+    index becomes a host integer."""
+    dev = resolve_device(device)
+    if any(getattr(cache, f) is not None
+           for f in ("ssm", "shared_kv", "enc_out", "cross_kv")):
+        raise NotImplementedError(
+            "only the kv field of a DecodeCache is ported")
+    kv_type = {"KVCache": L.KVCache,
+               "MLACache": L.MLACache}[type(cache.kv).__name__]
+    kv = kv_type(*(_leaf(a, dev) for a in cache.kv))
+    return M.DecodeCache(kv=kv, ssm=None, shared_kv=None, enc_out=None,
+                         cross_kv=None, index=int(np.asarray(cache.index)))
 
 
 def to_numpy(x):

@@ -1,0 +1,547 @@
+"""Model components for the architecture zoo (the port of the reference's
+``models/layers.py``).
+
+Conventions, as in the reference:
+  - parameters are groups named like the reference's dicts (``p["wq"]``);
+    ``init_*`` builds them, the apply functions read them. A group is a
+    ``Params`` module, so a model's ``state_dict`` keys are the
+    reference's dict paths (``layers.0.attn.wq``).
+  - activations (B, S, D); caches are explicit NamedTuples.
+  - dims named in einsums: b batch, s/t seq, d model, h heads, g kv-heads,
+    k head_dim, f ffn, e experts, c capacity/latent, q chunk.
+
+The arithmetic follows the reference op for op: products are einsums,
+attention scores are float32 and masked with -1e30, probabilities are
+cast to ``v``'s dtype before the PV product. Decode writes the new
+token's K/V into the cache's tensors in place; a cache index is a host
+integer shared by the whole batch.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.sharding_hooks import constrain, get_flag
+
+
+class Params(nn.Module):
+    """Named tensors and sub-groups, read like the reference's dicts.
+
+    Tensors become parameters that need no gradient (the serving path);
+    a training caller turns gradients on with ``requires_grad_()``.
+    """
+
+    def __init__(self, **items):
+        super().__init__()
+        for name, v in items.items():
+            if isinstance(v, nn.Module):
+                self.add_module(name, v)
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(v, requires_grad=False))
+
+    def __getitem__(self, name):
+        return getattr(self, name)
+
+    def __contains__(self, name):
+        return name in self._parameters or name in self._modules
+
+
+def _init(gen: Optional[torch.Generator], shape, scale=None,
+          dtype=torch.float32, device=None) -> torch.Tensor:
+    """normal(shape) * scale (default 1/sqrt(shape[0])) drawn from ``gen``
+    on its device; with ``gen`` None, an uninitialised tensor on
+    ``device`` (filled later, e.g. by ``interop.lm_params_from_numpy``)."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    scale = scale if scale is not None else (1.0 / (shape[0] ** 0.5))
+    draw = torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32)
+    return (draw * scale).to(dtype)
+
+
+def _ones(shape, dtype, gen, device) -> torch.Tensor:
+    return torch.ones(shape, dtype=dtype,
+                      device=gen.device if gen is not None else device)
+
+
+# ---------------------------------------------------------------------------
+# norms / rope
+# ---------------------------------------------------------------------------
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * scale).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, K) with K even; positions: (B, S) int. Rotates the
+    split halves (x1, x2) = x[..., :K/2], x[..., K/2:], not interleaved
+    pairs; angles in float32."""
+    k = x.shape[-1]
+    freqs = rope_freqs(k, theta, x.device)                 # (K/2,)
+    angles = positions[..., None].float() * freqs          # (B, S, K/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, G, S, K)
+    v: torch.Tensor  # (B, G, S, K)
+
+
+def init_gqa(gen, cfg: ArchConfig, dtype, device=None) -> Params:
+    d, h, g = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    k = cfg.resolved_head_dim
+    return Params(
+        wq=_init(gen, (d, h, k), dtype=dtype, device=device),
+        wk=_init(gen, (d, g, k), dtype=dtype, device=device),
+        wv=_init(gen, (d, g, k), dtype=dtype, device=device),
+        wo=_init(gen, (h, k, d), scale=1.0 / (h * k) ** 0.5, dtype=dtype,
+                 device=device))
+
+
+def _sdpa(q, k, v, mask):
+    """q (B,S,G,Hq,K), k/v (B,G,T,K), mask (B,1,1,S,T)-broadcastable or
+    None. Materialized float32 softmax."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    scores = torch.einsum("bsghk,bgtk->bghst", q, k) * scale
+    scores = constrain(scores.float(), "attn_scores_gqa")
+    if mask is not None:
+        scores = scores.masked_fill(~mask, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    probs = constrain(probs, "attn_scores_gqa")
+    return torch.einsum("bghst,bgtk->bsghk", probs, v)
+
+
+# Sequence length above which the prefill path switches from the
+# materialized softmax to the chunked online-softmax (flash) formulation.
+FLASH_THRESHOLD = 1024
+FLASH_Q_CHUNK = 512
+FLASH_KV_CHUNK = 1024
+
+
+def flash_attention(q, k, v, *, causal: bool, scale: float,
+                    q_chunk: int = FLASH_Q_CHUNK,
+                    kv_chunk: int = FLASH_KV_CHUNK,
+                    causal_skip: bool = False):
+    """Online-softmax (flash) attention in GQA layout, O(qc*kc) score memory.
+
+    q (B,S,G,Hq,K), k (B,G,T,K), v (B,G,T,Kv) -> out (B,S,G,Hq,Kv).
+
+    A chunk count falls back to 1 when the length is not a multiple of
+    the chunk (or is shorter). With ``causal_skip`` (and only when
+    ``s == t``) q chunk ``iq`` visits kv chunks ``0..iq``, as the
+    reference's while loop does; the reference's visits past the last kv
+    chunk read a clamped chunk whose keys are all masked and add nothing,
+    so the loop here stops at the last chunk.
+    """
+    b, s, g, hq, _ = q.shape
+    t = k.shape[2]
+    dv = v.shape[-1]
+    nq = s // q_chunk if (s % q_chunk == 0 and s >= q_chunk) else 1
+    qc = s // nq
+    nk = t // kv_chunk if (t % kv_chunk == 0 and t >= kv_chunk) else 1
+    kc = t // nk
+    dev = q.device
+    skip = causal_skip and causal and s == t
+
+    outs = []
+    for iq in range(nq):
+        qi = q[:, iq * qc:(iq + 1) * qc]                    # (B,qc,G,Hq,K)
+        q_pos = iq * qc + torch.arange(qc, device=dev)
+        acc = torch.zeros((b, g, hq, qc, dv), dtype=torch.float32,
+                          device=dev)
+        m = torch.full((b, g, hq, qc), -torch.inf, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, g, hq, qc), dtype=torch.float32, device=dev)
+        for jk in range(min(iq + 1, nk) if skip else nk):
+            kj = k[:, :, jk * kc:(jk + 1) * kc]              # (B,G,kc,K)
+            vj = v[:, :, jk * kc:(jk + 1) * kc]
+            scores = torch.einsum("bqghk,bgtk->bghqt", qi, kj) * scale
+            scores = scores.float()
+            if causal:
+                k_pos = jk * kc + torch.arange(kc, device=dev)
+                mask = q_pos[:, None] >= k_pos[None, :]
+                scores = scores.masked_fill(~mask, -1e30)
+            m_new = torch.maximum(m, scores.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(scores - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bghqt,bgtv->bghqv", p, vj.float())
+            m = m_new
+        out = (acc / torch.clamp_min(l[..., None], 1e-30)).to(q.dtype)
+        outs.append(out.movedim(3, 1))                     # (B,qc,G,Hq,Kv)
+    return torch.cat(outs, dim=1)
+
+
+def _check_cache_write(t: int, cache_index: int, s: int) -> None:
+    """The port raises where the reference would drop (s == 1) or clamp
+    (s > 1) a cache write at or past the cache's length."""
+    if not 0 <= cache_index <= t - s:
+        raise ValueError(
+            f"cache write of {s} position(s) at index {cache_index} does "
+            f"not fit a cache of {t} positions")
+
+
+def gqa_attention(params, x: torch.Tensor, positions: torch.Tensor,
+                  cfg: ArchConfig, *, causal: bool = True,
+                  cache: Optional[KVCache] = None,
+                  cache_index: Optional[int] = None,
+                  return_cache: bool = False,
+                  kv_x: Optional[torch.Tensor] = None,
+                  static_kv: Optional[KVCache] = None):
+    """GQA self-attention.
+
+    Modes:
+      - cache is None: full self-attention over x (prefill); when
+        return_cache, also emits the packed cache.
+      - cache given + cache_index (a host int): decode — new tokens
+        written into the cache in place at cache_index, attention over
+        positions <= cache_index.
+    Cross-attention (``kv_x``, ``static_kv``) is not ported.
+    """
+    if kv_x is not None or static_kv is not None:
+        raise NotImplementedError(
+            "cross-attention (kv_x / static_kv) is reached by no registered "
+            "config and is not ported (ROADMAP Queue 1)")
+    b, s, _ = x.shape
+    h, g = cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dgk->bsgk", x, params["wk"])
+    v = torch.einsum("bsd,dgk->bsgk", x, params["wv"])
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    k = k.transpose(1, 2)                                  # (B, G, S, K)
+    v = v.transpose(1, 2)
+    q = q.reshape(b, s, g, h // g, hd)
+
+    if cache is not None:
+        t = cache.k.shape[2]
+        _check_cache_write(t, cache_index, s)
+        cache.k[:, :, cache_index:cache_index + s] = k
+        cache.v[:, :, cache_index:cache_index + s] = v
+        # valid positions: <= current index
+        tpos = torch.arange(t, device=x.device)[None, None, None, None, :]
+        out = _sdpa(q, cache.k, cache.v, tpos <= cache_index)
+        new_cache = cache
+    else:
+        t = s
+        impl = get_flag("attn_impl", "auto")
+        use_flash = impl == "flash" or (
+            impl == "auto" and s >= FLASH_THRESHOLD and t >= FLASH_THRESHOLD)
+        if use_flash:
+            out = flash_attention(q, k, v, causal=causal,
+                                  scale=1.0 / (hd ** 0.5),
+                                  causal_skip=bool(get_flag("causal_skip",
+                                                            False)))
+        else:
+            mask = None
+            if causal:
+                ar = torch.arange(s, device=x.device)
+                mask = (ar[None, :] <= ar[:, None])[None, None, None]
+            out = _sdpa(q, k, v, mask)
+        new_cache = KVCache(k, v) if return_cache else None
+
+    out = out.reshape(b, s, h, hd)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return (y, new_cache) if (return_cache or cache is not None) else (y, None)
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (MiniCPM3 / DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor    # (B, S, C) compressed latent
+    k_rope: torch.Tensor  # (B, S, R) shared rotary key
+
+
+def init_mla(gen, cfg: ArchConfig, dtype, device=None) -> Params:
+    d, h = cfg.d_model, cfg.num_heads
+    qr, kr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nd, rd, vd = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    return Params(
+        w_dq=_init(gen, (d, qr), dtype=dtype, device=device),
+        q_norm=_ones((qr,), dtype, gen, device),
+        w_uq=_init(gen, (qr, h, nd + rd), dtype=dtype, device=device),
+        w_dkv=_init(gen, (d, kr), dtype=dtype, device=device),
+        kv_norm=_ones((kr,), dtype, gen, device),
+        w_kr=_init(gen, (d, rd), dtype=dtype, device=device),
+        w_uk=_init(gen, (kr, h, nd), dtype=dtype, device=device),
+        w_uv=_init(gen, (kr, h, vd), dtype=dtype, device=device),
+        wo=_init(gen, (h, vd, d), scale=1.0 / (h * vd) ** 0.5, dtype=dtype,
+                 device=device))
+
+
+def mla_attention(params, x: torch.Tensor, positions: torch.Tensor,
+                  cfg: ArchConfig, *, cache: Optional[MLACache] = None,
+                  cache_index: Optional[int] = None,
+                  return_cache: bool = False):
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    nd, rd = cfg.nope_head_dim, cfg.rope_head_dim
+    scale = 1.0 / ((nd + rd) ** 0.5)
+
+    cq = rmsnorm(params["q_norm"],
+                 torch.einsum("bsd,dc->bsc", x, params["w_dq"]), cfg.norm_eps)
+    q = torch.einsum("bsc,chk->bshk", cq, params["w_uq"])
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    ckv = rmsnorm(params["kv_norm"],
+                  torch.einsum("bsd,dc->bsc", x, params["w_dkv"]),
+                  cfg.norm_eps)
+    kr_new = torch.einsum("bsd,dr->bsr", x, params["w_kr"])[:, :, None, :]
+    kr_new = apply_rope(kr_new, positions, cfg.rope_theta)[:, :, 0, :]
+
+    if cache is not None:
+        t = cache.c_kv.shape[1]
+        _check_cache_write(t, cache_index, s)
+        cache.c_kv[:, cache_index:cache_index + s] = ckv
+        cache.k_rope[:, cache_index:cache_index + s] = kr_new
+        c_all, r_all = cache.c_kv, cache.k_rope
+        # Absorbed decode: score directly in the latent space, with no
+        # per-step K/V re-expansion.
+        q_lat = torch.einsum("bshn,chn->bshc", q_nope, params["w_uk"])
+        scores = (torch.einsum("bshc,btc->bhst", q_lat, c_all)
+                  + torch.einsum("bshr,btr->bhst", q_rope, r_all)) * scale
+        tpos = torch.arange(t, device=x.device)[None, None, None, :]
+        scores = scores.float().masked_fill(~(tpos <= cache_index), -1e30)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        out_lat = torch.einsum("bhst,btc->bshc", probs, c_all)
+        out = torch.einsum("bshc,chv->bshv", out_lat, params["w_uv"])
+        new_cache = cache
+    else:
+        k_nope = torch.einsum("btc,chn->bthn", ckv, params["w_uk"])
+        v = torch.einsum("btc,chv->bthv", ckv, params["w_uv"])
+        impl = get_flag("attn_impl", "auto")
+        use_flash = impl == "flash" or (impl == "auto"
+                                        and s >= FLASH_THRESHOLD)
+        if use_flash:
+            # concat nope+rope dims; per-head keys -> GQA layout g=h, hq=1
+            q_cat = torch.cat([q_nope, q_rope], -1)         # (B,S,H,nd+rd)
+            k_cat = torch.cat(
+                [k_nope, kr_new[:, :, None, :].expand(*k_nope.shape[:3], rd)],
+                -1)
+            out = flash_attention(
+                q_cat.reshape(b, s, h, 1, nd + rd),
+                k_cat.transpose(1, 2), v.transpose(1, 2),
+                causal=True, scale=scale,
+                causal_skip=bool(get_flag("causal_skip", False)))
+            out = out.reshape(b, s, h, -1)
+        else:
+            scores = (torch.einsum("bshn,bthn->bhst", q_nope, k_nope)
+                      + torch.einsum("bshr,btr->bhst", q_rope, kr_new)) \
+                * scale
+            scores = constrain(scores.float(), "attn_scores_mla")
+            ar = torch.arange(s, device=x.device)
+            mask = ar[None, :] <= ar[:, None]
+            scores = scores.masked_fill(~mask[None, None], -1e30)
+            probs = constrain(torch.softmax(scores, dim=-1),
+                              "attn_scores_mla").to(x.dtype)
+            out = torch.einsum("bhst,bthv->bshv", probs, v)
+        new_cache = MLACache(ckv, kr_new) if return_cache else None
+
+    y = torch.einsum("bshv,hvd->bsd", out, params["wo"])
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLPs + MoE
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen, d: int, f: int, mlp_type: str, dtype,
+             device=None) -> Params:
+    p = dict(w_in=_init(gen, (d, f), dtype=dtype, device=device),
+             w_out=_init(gen, (f, d), dtype=dtype, device=device))
+    if mlp_type == "swiglu":
+        p["w_gate"] = _init(gen, (d, f), dtype=dtype, device=device)
+    return Params(**p)
+
+
+def mlp(params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
+    h = torch.einsum("bsd,df->bsf", x, params["w_in"])
+    if mlp_type == "swiglu":
+        g = torch.einsum("bsd,df->bsf", x, params["w_gate"])
+        h = F.silu(g) * h
+    else:
+        # jax.nn.gelu defaults to the tanh approximation.
+        h = F.gelu(h, approximate="tanh")
+    return torch.einsum("bsf,fd->bsd", h, params["w_out"])
+
+
+def init_moe(gen, cfg: ArchConfig, dtype, device=None) -> Params:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    p = dict(
+        # the router stays float32 whatever the model's dtype
+        router=_init(gen, (d, e), scale=0.02, dtype=torch.float32,
+                     device=device),
+        w_in=_init(gen, (e, d, f), dtype=dtype, device=device),
+        w_gate=_init(gen, (e, d, f), dtype=dtype, device=device),
+        w_out=_init(gen, (e, f, d), dtype=dtype, device=device))
+    if cfg.num_shared_experts:
+        p["shared"] = init_mlp(gen, d, f * cfg.num_shared_experts,
+                               "swiglu", dtype, device)
+    return Params(**p)
+
+
+def moe_block(params, x: torch.Tensor, cfg: ArchConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k MoE with a capacity cap: each expert's load is capped at
+    (capacity_factor x ideal); overflow tokens drop to the shared-expert /
+    residual path.
+
+    Prefill dispatches per sequence (each batch row sorts its own tokens
+    into expert bins); decode (s == 1) dispatches the whole token batch
+    into one capped expert buffer.
+
+    Returns (output, aux_load_balance_loss). ``torch.topk`` may break
+    exact ties in the router's probabilities differently from
+    ``jax.lax.top_k`` (lower index first); random routers have none.
+    """
+    _, s, _ = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+
+    logits = torch.einsum("bsd,de->bse", x.float(), params["router"])
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = torch.topk(probs, k, dim=-1)   # (B, S, k)
+    gate_vals = gate_vals / torch.clamp_min(
+        gate_vals.sum(-1, keepdim=True), 1e-9)
+
+    # aux loss (Switch-style), normalized by k so uniform routing -> 1.0
+    me = torch.mean(probs, dim=(0, 1))
+    ce = torch.mean(F.one_hot(expert_idx, e).sum(2).float(), dim=(0, 1))
+    aux = torch.sum(me * ce) * e / max(k, 1)
+
+    if s == 1:
+        y = _moe_decode_dispatch(params, x, gate_vals, expert_idx, cfg)
+    else:
+        y = _moe_dispatch_per_row(params, x, gate_vals, expert_idx, cfg)
+
+    if "shared" in params:
+        y = y + mlp(params["shared"], x, "swiglu")
+    return y, aux
+
+
+def _run_starts(se: torch.Tensor) -> torch.Tensor:
+    """Each element's position within its run of equal experts, along the
+    last axis of the sorted expert ids ``se``."""
+    ar = torch.arange(se.shape[-1], device=se.device).expand_as(se)
+    new_run = torch.ones_like(se, dtype=torch.bool)
+    new_run[..., 1:] = se[..., 1:] != se[..., :-1]
+    run_start = torch.cummax(torch.where(new_run, ar, 0), dim=-1).values
+    return ar - run_start
+
+
+def decode_capacity(cfg: ArchConfig, t: int) -> int:
+    """Expert buffer depth of the decode dispatch for ``t`` tokens."""
+    e, k = cfg.num_experts, cfg.experts_per_token
+    factor = cfg.moe_decode_capacity_factor or 4.0
+    if cfg.moe_decode_capacity_factor == 0.0 and t <= 256:
+        return t                         # dropless for small serving batches
+    return min(t, max(k, int(round(t * k / e * factor))))
+
+
+def _moe_decode_dispatch(params, x, gate_vals, expert_idx, cfg):
+    """Decode-regime MoE: flat dispatch over the (tiny) token batch into
+    an (E, C, d) expert buffer capped at ``decode_capacity``."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    t = b * s
+    tk = t * k
+    capacity = decode_capacity(cfg, t)
+
+    xf = x.reshape(t, d)
+    flat_e = expert_idx.reshape(tk)
+    flat_g = gate_vals.reshape(tk)
+    flat_tok = torch.arange(t, device=x.device).repeat_interleave(k)
+    order = torch.sort(flat_e, stable=True).indices
+    se, sg, stok = flat_e[order], flat_g[order], flat_tok[order]
+    pos = _run_starts(se)
+    keep = pos < capacity
+    slot = torch.where(keep, se * capacity + pos, e * capacity)
+
+    buf = torch.zeros((e * capacity + 1, d), dtype=x.dtype, device=x.device)
+    buf[slot] = xf[stok] * keep[:, None].to(x.dtype)
+    hbuf = constrain(buf[:-1].reshape(e, capacity, d), "moe_buf_decode")
+    hin = torch.einsum("ecd,edf->ecf", hbuf, params["w_in"])
+    hg = torch.einsum("ecd,edf->ecf", hbuf, params["w_gate"])
+    hout = torch.einsum("ecf,efd->ecd", F.silu(hg) * hin, params["w_out"])
+    hout = constrain(hout, "moe_buf_decode")
+    hflat = torch.cat([hout.reshape(e * capacity, d),
+                       torch.zeros((1, d), dtype=x.dtype, device=x.device)])
+    contrib = hflat[slot] * (sg * keep)[:, None].to(x.dtype)
+    y = torch.zeros((t, d), dtype=x.dtype, device=x.device)
+    y.index_add_(0, stok, contrib)
+    return y.reshape(b, s, d)
+
+
+def row_capacity(cfg: ArchConfig, s: int) -> int:
+    """Expert buffer depth of the per-row dispatch for rows of ``s``."""
+    tk = s * cfg.experts_per_token
+    # Dropless only at serving-scale rows (tk <= 512).
+    if tk <= 512 and cfg.moe_capacity_factor >= 1.0:
+        return tk
+    return int(max(1, round(tk / cfg.num_experts * cfg.moe_capacity_factor)))
+
+
+def _moe_dispatch_per_row(params, x, gate_vals, expert_idx, cfg):
+    """Row-local sort-based dispatch with capacity cap."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    tk = s * k
+    capacity = row_capacity(cfg, s)
+
+    flat_e = expert_idx.reshape(b, tk)
+    flat_g = gate_vals.reshape(b, tk)
+    flat_tok = torch.arange(s, device=x.device).repeat_interleave(k)
+    order = torch.sort(flat_e, dim=-1, stable=True).indices   # (B, tk)
+    se = torch.gather(flat_e, 1, order)
+    sg = torch.gather(flat_g, 1, order)
+    stok = flat_tok[order]
+    pos = _run_starts(se)
+    keep = pos < capacity
+    slot = torch.where(keep, se * capacity + pos, e * capacity)  # (B, tk)
+
+    rows = torch.arange(b, device=x.device)[:, None]
+    gathered = x[rows, stok] * keep[..., None].to(x.dtype)      # (B,tk,d)
+    buf = torch.zeros((b, e * capacity + 1, d), dtype=x.dtype,
+                      device=x.device)
+    buf[rows, slot] = gathered
+    hbuf = constrain(buf[:, :-1].reshape(b, e, capacity, d), "moe_buf")
+    hin = torch.einsum("becd,edf->becf", hbuf, params["w_in"])
+    hg = torch.einsum("becd,edf->becf", hbuf, params["w_gate"])
+    hout = torch.einsum("becf,efd->becd", F.silu(hg) * hin, params["w_out"])
+    hout = constrain(hout, "moe_buf")
+    hflat = torch.cat([hout.reshape(b, e * capacity, d),
+                       torch.zeros((b, 1, d), dtype=x.dtype,
+                                   device=x.device)], dim=1)
+    contrib = hflat[rows, slot] * (sg * keep)[..., None].to(x.dtype)
+    y = torch.zeros((b * s, d), dtype=x.dtype, device=x.device)
+    y.index_add_(0, (rows * s + stok).reshape(b * tk),
+                 contrib.reshape(b * tk, d))
+    return y.reshape(b, s, d)

@@ -74,7 +74,11 @@ def _default_device_calls():
     from repro_torch import interop, serve
     from repro_torch.core import camera, engine, load_balance, plan
     from repro_torch.core.pipeline import RenderConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import model
     from repro_torch.scenes import synthetic, trajectory
+    lm_cfg = get_config("yi-9b").reduced()
     eye4 = np.eye(4, dtype=np.float32)
     poses = torch.eye(4).expand(2, 3, 4, 4)
     return {
@@ -108,6 +112,16 @@ def _default_device_calls():
             np.zeros((16, 16), bool), 0),
         "full_plan": lambda: plan.full_plan(2, 2),
         "morton_rank": lambda: load_balance.morton_rank(2, 2),
+        "init_params": lambda: model.init_params(lm_cfg),
+        "empty_params": lambda: model.empty_params(lm_cfg),
+        "init_cache": lambda: model.init_cache(lm_cfg, 1, 8),
+        "serve": lambda: lm_serve.serve(
+            lm_cfg, batch_slots=1, max_seq=8, n_requests=1, prompt_len=2,
+            max_new=1),
+        "lm_params_from_numpy": lambda: interop.lm_params_from_numpy(
+            {"layers": []}, lm_cfg),
+        "decode_cache_from_numpy": lambda: interop.decode_cache_from_numpy(
+            model.init_cache(lm_cfg, 1, 8, device="cpu")),
     }
 
 

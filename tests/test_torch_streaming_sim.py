@@ -135,13 +135,20 @@ def test_recorded_equals_host_ls_gaussian(reference_records):
 
 
 def test_default_policy_is_recorded(reference_records):
+    """Both packages called with no policy give one timeline: the port's
+    default is the reference's (``ls_gaussian``, the host golden), no
+    longer ``recorded`` as the test's name still says."""
     jrecords, cam = reference_records
+    jf = jsim.frameworks_from_stacked(jrecords, cam.tiles_x, cam.tiles_y,
+                                      cam.width * cam.height)
     tf = _port_frames(jrecords, cam)
+    _assert_same_run(jf, tf, dict(num_blocks=8))
     cfg = tsim.AcceleratorConfig(num_blocks=8)
     assert tsim.simulate_sequence(tf, cfg) == \
-        tsim.simulate_sequence(tf, cfg, policy="recorded")
+        tsim.simulate_sequence(tf, cfg, policy="ls_gaussian")
     with pytest.raises(ValueError, match="built for 8 blocks"):
-        tsim.simulate_sequence(tf, tsim.AcceleratorConfig(num_blocks=4))
+        tsim.simulate_sequence(tf, tsim.AcceleratorConfig(num_blocks=4),
+                               policy="recorded")
     with pytest.raises(ValueError, match="unknown policy"):
         tsim.simulate_sequence(tf, cfg, policy="x")
 
