@@ -84,6 +84,24 @@ Phases (each prints its own lines; a failed check exits non-zero):
    steps at batch 4 (moonshot: the capped MoE decode dispatch), each
    gated at LM_F32_GATE x std(logits). This slice adds no kernel: the
    reference computes attention in jnp, outside any Pallas kernel.
+7. LM training (phase 6's weights freed first): minicpm3-4b at its
+   published width and depth (62 layers, MLA, 4.26 B parameters) in
+   bfloat16 with ``remat="full"``, random weights from a seed, through
+   ``launch/train.train_loop`` at the launcher's defaults (batch 8, seq
+   128, the CLI's optimizer config) for TRAIN_STEPS steps: every step's
+   loss (finite), grad norm, lr and time (CUDA events); the median step
+   after the first against its bound (the larger of the executed FLOPs
+   over the bf16 peak and the bytes the step must move over the HBM
+   rate), MFU (6 N D over the step time at the bf16 peak), tokens/s and
+   peak memory; one step profiled (launches, idle share, top kernels)
+   and one more split into forward, backward and optimizer.
+7b. The four registered configs at full width, depth cut to
+   TRAIN_CHECK_LAYERS layers, float32 with TF32 off: one train step with
+   ``remat="full"`` against ``"none"`` (loss, gradients and updated
+   parameters, each within its stated bound); the loss's gradient along
+   a seeded direction in float64 against a central difference; and a
+   checkpoint save -> restore -> next step that reproduces the
+   uninterrupted step exactly (deterministic algorithms on).
 
 The last two lines are the kernels' JSON record and the device record.
 Needs a CUDA GPU; exits non-zero without one.
@@ -104,9 +122,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# The card's published peaks (H100 SXM data sheet, 700 W).
+# The card's published peaks (H100 SXM data sheet, 700 W; dense rates).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989.4e12
 # Floating-point operations the blend needs per (pixel, real lane) reached
 # while the pixel is not yet done: offsets 2, power 9, exp 1, alpha 3,
 # stop test 1.
@@ -1539,8 +1558,21 @@ def free_cuda():
     torch.cuda.empty_cache()
 
 
-def phase_lm_full(smi, arch="yi-9b"):
+def kernels_by_name(events, top):
+    """Print the ``top`` kernels by device time: ms, launches, name."""
     from torch.autograd import DeviceType
+    by_name = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and not e.name.startswith(
+                "repro."):
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    for name, (ms, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:top]:
+        print(f"    {ms:8.3f} ms {n:6d} x {name[:90]}", flush=True)
+
+
+def phase_lm_full(smi, arch="yi-9b"):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
@@ -1609,14 +1641,7 @@ def phase_lm_full(smi, arch="yi-9b"):
           f"kernels {busy_ms:.3f} ms over {n_kernels} launches "
           f"({bound_ms / busy_ms:.3f} of the bound), device idle share "
           f"{idle:.3f}", flush=True)
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
-                                )[:5]:
-        print(f"    {ms:8.3f} ms {n:5d} x {name[:90]}", flush=True)
+    kernels_by_name(prof.events(), 5)
     del cache, logits
     free_cuda()
 
@@ -1756,6 +1781,412 @@ def phase_lm_checks():
         free_cuda()
 
 
+# Phase 7: the LM harness's training path. minicpm3-4b is the one
+# registered config whose training state (bf16 parameters and gradients,
+# float32 moments: 12 bytes a parameter) fits one card at its published
+# width and depth.
+TRAIN_ARCH = "minicpm3-4b"
+TRAIN_STEPS = 8
+TRAIN_BATCH, TRAIN_SEQ = 8, 128            # the launcher's defaults
+TRAIN_CHECK_LAYERS = 2
+TRAIN_CHECK_BATCH = 2
+# remat "full" against "none" in float32: gradients differ by the order
+# of atomic adds (the embedding's and the MoE combine's index_add_) only.
+TRAIN_GRAD_GATE = 1e-5                     # max|dg| / max|g|, per leaf
+# After one AdamW step at lr from warm-up 1: where |g| is at least
+# TRAIN_G_FLOOR x the leaf's max|g| the update is ~lr sign(g) whatever
+# the gradient's last bits, so the parameters agree to TRAIN_P_GATE x lr
+# (+ 2 ulp); below the floor a sign may flip: at most 2 lr (+ 2 ulp).
+TRAIN_G_FLOOR = 1e-3
+TRAIN_P_GATE = 1e-3
+# The float64 directional derivative against a central difference of
+# relative step TRAIN_FD_H along the seeded direction.
+TRAIN_FD_H = 1e-5
+TRAIN_FD_GATE = 1e-6
+
+
+class Patched:
+    """Replace ``module.name`` by ``wrap(the real one)`` inside the
+    ``with`` block."""
+
+    def __init__(self, module, name, wrap):
+        self.module, self.name, self.wrap = module, name, wrap
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.wrap(self.real))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def train_step_bound(cfg, params, tokens):
+    """(bound ms, bound_by, executed FLOPs, bytes) of one AdamW train
+    step on ``tokens`` tokens: the larger of the executed FLOPs over the
+    bf16 peak and the bytes the step must move over the HBM rate.
+
+    FLOPs: 2 per weight of every product (all but the embedding lookup
+    and the norms' scales) per token, plus attention's full S x S scores
+    and PV products; the blocks run forward, again under remat "full",
+    and backward (2x), the head forward and backward. Bytes: the weights
+    read by the forward, the recompute and the backward; the gradients
+    written once and read by the global norm and the update; the update's
+    read and write of each parameter and of both float32 moments."""
+    p_bytes = lm_bytes(params.parameters())
+    m_bytes = 4 * sum(p.numel() for p in params.parameters())
+    head = "embed" if cfg.tie_embeddings else "lm_head"
+    n_head = params[head].numel()
+    n_blocks = sum(p.numel() for n, p in params.named_parameters()
+                   if p.dim() >= 2 and n.startswith("layers."))
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    if cfg.attention == "mla":
+        qk, v = cfg.nope_head_dim + cfg.rope_head_dim, cfg.v_head_dim
+    else:
+        qk = v = cfg.resolved_head_dim
+    attn = 2 * b * cfg.num_heads * s * s * (qk + v) * cfg.num_layers
+    f_blocks = 2 * tokens * n_blocks + attn
+    f_head = 2 * tokens * n_head
+    flops = f_blocks * (4 if cfg.remat == "full" else 3) + 3 * f_head
+    nbytes = 8 * p_bytes + 4 * m_bytes
+    flops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    if flops_ms > bytes_ms:
+        return flops_ms, "operations", flops, nbytes
+    return bytes_ms, "bytes", flops, nbytes
+
+
+def phase_train_full(smi):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as LT
+    from repro_torch.train import data as D
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    cfg = get_config(TRAIN_ARCH)
+    print(f"== phase 7: LM training, {TRAIN_ARCH} at its published width "
+          f"and depth, {cfg.dtype}, remat {cfg.remat!r} ({smi})",
+          flush=True)
+    print(f"  {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads ({cfg.attention}: q_lora "
+          f"{cfg.q_lora_rank}, kv_lora {cfg.kv_lora_rank}), d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}; {cfg.param_count() / 1e9:.3f}"
+          f" B parameters; memory in use before the phase "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    data_cfg = D.DataConfig(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                            vocab_size=cfg.vocab_size, seed=SEED)
+    # the CLI's optimizer config for --steps TRAIN_STEPS
+    opt_cfg = O.OptimizerConfig(total_steps=TRAIN_STEPS,
+                                warmup_steps=max(TRAIN_STEPS // 20, 1))
+    run = LT.RunConfig(steps=TRAIN_STEPS, log_every=1)
+    steps = []
+
+    def timed(make):
+        def make_timed(*args, **kwargs):
+            step_fn = make(*args, **kwargs)
+
+            def run_step(state, batch):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                state, metrics = step_fn(state, batch)
+                end.record()
+                end.synchronize()
+                steps.append((start.elapsed_time(end), metrics))
+                return state, metrics
+            return run_step
+        return make_timed
+
+    t0 = time.perf_counter()
+    with Patched(TS, "make_train_step", timed):
+        out = LT.train_loop(cfg, data_cfg, opt_cfg, run,
+                            log=lambda m: print(f"  {m}", flush=True))
+    loop_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    state = out["state"]
+    for i, (ms, m) in enumerate(steps):
+        print(f"  step {i}: loss {float(m['loss']):.6f} grad_norm "
+              f"{float(m['grad_norm']):.6f} lr {m['lr']:.4e} "
+              f"{ms:.3f} ms (CUDA events)", flush=True)
+    losses = out["history"]
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(x)
+                                            for x in losses),
+          f"{TRAIN_STEPS} steps, every loss finite (first {losses[0]:.4f},"
+          f" last {losses[-1]:.4f}; ln V = {math.log(cfg.vocab_size):.4f})")
+    check(all(math.isfinite(float(m["grad_norm"])) for _, m in steps),
+          "every grad norm finite")
+    times = [ms for ms, _ in steps[1:]]
+    step_ms = statistics.median(times)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    bound_ms, bound_by, flops, nbytes = train_step_bound(
+        cfg, state.params, tokens)
+    mfu = 6 * cfg.param_count() * tokens / (step_ms / 1e3) \
+        / BF16_FLOPS_PER_S
+    print(f"  train_loop ({TRAIN_STEPS} steps, batch {TRAIN_BATCH} x seq "
+          f"{TRAIN_SEQ}, init included): {loop_s:.3f} s; peak memory "
+          f"{peak:.2f} GB ({smi})", flush=True)
+    print(f"  train step: median {step_ms:.3f} ms over {len(times)} steps "
+          f"after the first (min {min(times):.3f}, max {max(times):.3f}; "
+          f"first {steps[0][0]:.3f}); bound {bound_ms:.3f} ms "
+          f"({bound_by}: {flops / 1e12:.2f} TFLOP executed / "
+          f"{BF16_FLOPS_PER_S / 1e12:.1f} TFLOP/s = "
+          f"{flops / BF16_FLOPS_PER_S * 1e3:.3f} ms, {nbytes / 1e9:.2f} GB "
+          f"/ {HBM_BYTES_PER_S / 1e12:.2f} TB/s = "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms); "
+          f"{bound_ms / step_ms:.3f} of the bound; MFU {mfu:.4f} (6 N D = "
+          f"{6 * cfg.param_count() * tokens / 1e12:.2f} TFLOP a step); "
+          f"{tokens / step_ms * 1e3:.1f} tokens/s", flush=True)
+
+    # One step as train_loop runs it, profiled: launches and idle share.
+    step_fn = TS.make_train_step(cfg, opt_cfg)
+    batch = D.batch_at(data_cfg, TRAIN_STEPS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy_ms, n_kernels, idle = device_split(prof.events(), wall)
+    print(f"  one train step profiled: wall {wall:.3f} ms (profiler on), "
+          f"kernels {busy_ms:.3f} ms over {n_kernels} launches "
+          f"({bound_ms / busy_ms:.3f} of the bound), device idle share "
+          f"{idle:.3f}; top kernels by device time:", flush=True)
+    kernels_by_name(prof.events(), 8)
+    del prof
+
+    # One more step split into its three parts, with a sync after each so
+    # that each kernel runs inside the part that launched it.
+    loss_fn = TS.make_loss_fn(cfg)
+    named = dict(state.params.named_parameters())
+    parts = ("repro.train/forward", "repro.train/backward",
+             "repro.train/optimizer")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        with record_function(parts[0]):
+            total, _ = loss_fn(state.params, batch)
+            torch.cuda.synchronize()
+        with record_function(parts[1]):
+            grads = torch.autograd.grad(total, list(named.values()))
+            torch.cuda.synchronize()
+        with record_function(parts[2]):
+            O.adamw_update(dict(zip(named, grads)), state.opt, named,
+                           opt_cfg)
+            torch.cuda.synchronize()
+    del grads, total
+    events = prof.events()
+    spans = {e.name: e.time_range for e in events
+             if e.name in parts and e.device_type == DeviceType.CPU}
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("repro.")]
+    placed = 0
+    for name in parts:
+        span = spans[name]
+        mine = [e for e in kernels
+                if span.start <= e.time_range.start < span.end]
+        placed += len(mine)
+        ms = sum(e.time_range.elapsed_us() for e in mine) / 1e3
+        wall_ms = span.elapsed_us() / 1e3
+        print(f"  {name.split('/')[1]:9s}: wall {wall_ms:9.3f} ms, kernels "
+              f"{ms:8.3f} ms over {len(mine):6d} launches, idle share "
+              f"{1 - ms / wall_ms:.3f}", flush=True)
+    print(f"  ({placed} of {len(kernels)} kernels placed in a part)",
+          flush=True)
+    del prof, events, kernels, state, out, steps, named
+    free_cuda()
+    return {"step_ms": step_ms, "bound_ms": bound_ms, "mfu": mfu,
+            "tok_per_s": tokens / step_ms * 1e3, "peak_gb": peak,
+            "launches": n_kernels, "idle": idle}
+
+
+def max_rel_leaf_err(got, want):
+    """max over leaves of max|got - want| / max|want|."""
+    worst = 0.0
+    for k in want:
+        scale = float(want[k].abs().max())
+        err = float((got[k] - want[k]).abs().max())
+        worst = max(worst, err / scale if scale > 0 else err)
+    return worst
+
+
+def phase_train_checks(smi):
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.train import checkpoint as C
+    from repro_torch.train import data as D
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    print(f"== phase 7b: training checks, the four configs at full width, "
+          f"depth cut to {TRAIN_CHECK_LAYERS} layers, float32, TF32 "
+          f"{'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}, "
+          f"batch {TRAIN_CHECK_BATCH} x seq {TRAIN_SEQ} ({smi})", flush=True)
+    opt_cfg = O.OptimizerConfig(warmup_steps=1)
+    lr = O.lr_schedule(opt_cfg, 1)
+    ckpt_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build")
+    os.makedirs(ckpt_root, exist_ok=True)
+    for arch in LM_ARCHS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch),
+                                  num_layers=TRAIN_CHECK_LAYERS,
+                                  dtype="float32")
+        data_cfg = D.DataConfig(batch_size=TRAIN_CHECK_BATCH,
+                                seq_len=TRAIN_SEQ,
+                                vocab_size=cfg.vocab_size, seed=SEED)
+        b0, b1 = D.batch_at(data_cfg, 0), D.batch_at(data_cfg, 1)
+
+        # 1. remat "full" against "none": loss, gradients, one step.
+        none = dataclasses.replace(cfg, remat="none")
+        state = TS.init_train_state(none, seed=SEED)
+        named = dict(state.params.named_parameters())
+        print(f"  {arch}: {lm_bytes(named.values()) / 1e9:.2f} GB of "
+              f"parameters ({cfg.attention}, {cfg.family}); remat "
+              f"{cfg.remat!r}", flush=True)
+        grads = {}
+        for c in (cfg, none):
+            total, m = TS.make_loss_fn(c)(state.params, b0)
+            grads[c.remat] = (float(m["loss"].detach()), dict(zip(
+                named, torch.autograd.grad(total, list(named.values())))))
+            del total
+        (loss_f, g_f), (loss_n, g_n) = grads["full"], grads["none"]
+        g_err = max_rel_leaf_err(g_f, g_n)
+        exact = cfg.family != "moe"
+        check((loss_f == loss_n) if exact else
+              abs(loss_f - loss_n) <= 1e-6 * abs(loss_n),
+              f"{arch} loss, remat full {loss_f!r} vs none {loss_n!r}"
+              + ("" if exact else " (<= 1e-6 relative: the MoE combine's "
+                 "index_add_ is atomic)"))
+        check(g_err <= TRAIN_GRAD_GATE,
+              f"{arch} gradients, remat full vs none: max|dg| / max|g| "
+              f"{g_err:.3g} <= {TRAIN_GRAD_GATE}")
+        del g_f, grads
+        floor = {k: TRAIN_G_FLOOR * float(g.abs().max())
+                 for k, g in g_n.items()}
+        big = {k: g.abs() >= floor[k] for k, g in g_n.items()}
+        del g_n
+        state, m_n = TS.make_train_step(none, opt_cfg)(state, b0)
+        p_n = {k: p.detach().clone() for k, p in named.items()}
+        del state, named
+        free_cuda()
+        state = TS.init_train_state(cfg, seed=SEED)
+        state, m_f = TS.make_train_step(cfg, opt_cfg)(state, b0)
+        tight = worst_small = 0.0
+        n_small = n_over = 0
+        for k, p in state.params.named_parameters():
+            d = (p.detach() - p_n[k]).abs()
+            ulp2 = 2 * torch.finfo(p.dtype).eps * p_n[k].abs()
+            tight = max(tight, float(((d - ulp2) * big[k]).max()) / lr)
+            rest = (d - ulp2)[~big[k]]
+            n_small += rest.numel()
+            if rest.numel():
+                worst_small = max(worst_small, float(rest.max()) / lr)
+                n_over += int((rest > TRAIN_P_GATE * lr).sum())
+        check(tight <= TRAIN_P_GATE and worst_small <= 2.0,
+              f"{arch} one step, remat full vs none: loss "
+              f"{float(m_f['loss'])!r} vs {float(m_n['loss'])!r}; "
+              f"parameters (less 2 ulp) "
+              f"within {tight:.3g} lr where |g| >= {TRAIN_G_FLOOR} x the "
+              f"leaf's max|g| (gate {TRAIN_P_GATE}); below the floor "
+              f"{n_over} of {n_small} elements past {TRAIN_P_GATE} lr, the "
+              f"worst {worst_small:.3g} lr (gate 2 lr); lr {lr:.3e}")
+        del state, p_n, big
+        free_cuda()
+
+        # 2. float64: the gradient along a seeded direction against a
+        # central difference.
+        c64 = dataclasses.replace(cfg, dtype="float64")
+        params = M.init_params(c64, seed=SEED).double().requires_grad_()
+        named = dict(params.named_parameters())
+        loss_fn = TS.make_loss_fn(c64)
+        total, _ = loss_fn(params, b0)
+        grads = torch.autograd.grad(total, list(named.values()))
+        del total
+        rms = {k: float(p.detach().square().mean().sqrt())
+               for k, p in named.items()}
+        gen = torch.Generator(device="cuda")
+
+        def direction():
+            gen.manual_seed(SEED + 1)
+            for k, p in named.items():
+                yield k, p, torch.randn(p.shape, generator=gen,
+                                        device="cuda",
+                                        dtype=torch.float64) * rms[k]
+
+        dd = sum(float((g * u).sum())
+                 for g, (_, _, u) in zip(grads, direction()))
+        del grads
+        orig = {k: p.detach().clone() for k, p in named.items()}
+        side = []
+        with torch.no_grad():
+            for sign in (1.0, -1.0):
+                for k, p, u in direction():
+                    p.copy_(orig[k] + sign * TRAIN_FD_H * u)
+                side.append(float(loss_fn(params, b0)[0]))
+        fd = (side[0] - side[1]) / (2 * TRAIN_FD_H)
+        rel = abs(fd - dd) / abs(dd)
+        check(rel <= TRAIN_FD_GATE,
+              f"{arch} float64 directional derivative: autograd {dd!r}, "
+              f"central difference (h = {TRAIN_FD_H}) {fd!r}, relative "
+              f"error {rel:.3g} <= {TRAIN_FD_GATE}")
+        del params, named, orig
+        free_cuda()
+
+        # 3. checkpoint save -> restore -> next step, against the step
+        # without the restart; deterministic algorithms (the index_add_
+        # and index backward kernels' sorted forms) for bit equality.
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            import warnings
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                step_fn = TS.make_train_step(cfg, opt_cfg)
+                state = TS.init_train_state(cfg, seed=SEED)
+                state, _ = step_fn(state, b0)
+                with tempfile.TemporaryDirectory(dir=ckpt_root) as d:
+                    t1 = time.perf_counter()
+                    C.save(d, 1, state, metadata={"arch": arch})
+                    save_s = time.perf_counter() - t1
+                    size = sum(os.path.getsize(os.path.join(r, f))
+                               for r, _, fs in os.walk(d) for f in fs)
+                    t1 = time.perf_counter()
+                    template = TS.TrainState(
+                        params=M.empty_params(cfg, device="meta"
+                                              ).requires_grad_(),
+                        opt=O.init_opt_state(M.empty_params(
+                            cfg, device="meta")))
+                    restored, step, _ = C.restore(d, template,
+                                                  device="cuda")
+                    load_s = time.perf_counter() - t1
+                same = restored.opt.step == state.opt.step == step == 1
+                for a, b in ((dict(restored.params.named_parameters()),
+                              dict(state.params.named_parameters())),
+                             (restored.opt.mu, state.opt.mu),
+                             (restored.opt.nu, state.opt.nu)):
+                    same = same and all(torch.equal(a[k], b[k]) for k in b)
+                check(same, f"{arch} checkpoint ({size / 1e9:.2f} GB, save "
+                      f"{save_s:.2f} s, restore {load_s:.2f} s): the "
+                      f"restored state equals the saved one bit for bit")
+                state, m_a = step_fn(state, b1)
+                restored, m_b = step_fn(restored, b1)
+                same = float(m_a["loss"]) == float(m_b["loss"]) and all(
+                    torch.equal(p, q) for p, q in zip(
+                        state.params.parameters(),
+                        restored.params.parameters()))
+                check(same, f"{arch} the step after the restore equals the "
+                      f"uninterrupted step exactly: loss "
+                      f"{float(m_b['loss'])!r}, every parameter")
+        finally:
+            torch.use_deterministic_algorithms(False)
+        del state, restored, template
+        free_cuda()
+        print(f"  {arch}: {time.perf_counter() - t0:.2f} s", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA GPU (torch.cuda.is_available() is "
@@ -1811,6 +2242,14 @@ def main():
           f"decode step {lm['step_ms']:.3f} ms against a "
           f"{lm['bound_ms']:.3f} ms bound, peak memory {lm['peak_gb']:.2f} "
           f"GB ({smi})", flush=True)
+    train = phase_train_full(smi)
+    phase_train_checks(smi)
+    print(f"phase 7 summary: {TRAIN_ARCH} bf16 train step "
+          f"{train['step_ms']:.3f} ms against a {train['bound_ms']:.3f} ms "
+          f"bound, MFU {train['mfu']:.4f}, {train['tok_per_s']:.1f} "
+          f"tokens/s, peak memory {train['peak_gb']:.2f} GB, "
+          f"{train['launches']} launches a step, idle share "
+          f"{train['idle']:.3f} ({smi})", flush=True)
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,8 @@
 """Carry weights and state into and out of the port as numpy arrays.
 
-The reference's scenes, cameras, frame states, LM parameter trees and
-decode caches reach the port as numpy arrays (``np.asarray`` on each
-field), so the port never sees an object of another framework;
+The reference's scenes, cameras, frame states, LM parameter trees, train
+states and decode caches reach the port as numpy arrays (``np.asarray``
+on each field), so the port never sees an object of another framework;
 ``to_numpy`` converts the port's results back for comparison.
 """
 from __future__ import annotations
@@ -19,6 +19,8 @@ from repro_torch.core.gaussians import GaussianScene
 from repro_torch.core.pipeline import FrameState
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
+from repro_torch.train.optimizer import OptState
+from repro_torch.train.train_step import TrainState
 
 
 def _tensor(x, dtype, dev) -> torch.Tensor:
@@ -86,6 +88,15 @@ def _unstack(tree, i: int):
     return np.asarray(tree)[i]
 
 
+def _named_leaves(tree: Dict[str, Any], cfg) -> Dict[str, Any]:
+    """A reference parameter-shaped tree (either layer layout) as
+    {the port's parameter name: numpy leaf}."""
+    layers = tree["layers"]
+    if isinstance(layers, dict):
+        layers = [_unstack(layers, i) for i in range(cfg.num_layers)]
+    return dict(_flatten(dict(tree, layers=list(layers))))
+
+
 def lm_params_from_numpy(tree: Dict[str, Any], cfg, *,
                          device="cuda") -> L.Params:
     """The reference's ``init_params`` tree as the port's parameters.
@@ -98,10 +109,7 @@ def lm_params_from_numpy(tree: Dict[str, Any], cfg, *,
     """
     dev = resolve_device(device)
     params = M.empty_params(cfg, device=dev)
-    layers = tree["layers"]
-    if isinstance(layers, dict):
-        layers = [_unstack(layers, i) for i in range(cfg.num_layers)]
-    flat = dict(_flatten(dict(tree, layers=list(layers))))
+    flat = _named_leaves(tree, cfg)
     want = dict(params.named_parameters())
     if set(flat) != set(want):
         raise ValueError(
@@ -116,6 +124,32 @@ def lm_params_from_numpy(tree: Dict[str, Any], cfg, *,
                 f"has {tuple(p.shape)} {p.dtype}")
         p.data = t
     return params
+
+
+def train_state_from_numpy(params_tree: Dict[str, Any], opt_tree, cfg, *,
+                           device="cuda"):
+    """The reference's ``TrainState`` (its ``params`` tree and its
+    ``OptState(step, mu, nu)``, leaves as numpy, either layer layout) as
+    the port's ``train_step.TrainState``: parameters with gradients on,
+    float32 moments by parameter name, the step as a host int."""
+    dev = resolve_device(device)
+    params = lm_params_from_numpy(params_tree, cfg,
+                                  device=dev).requires_grad_()
+    shapes = {k: p.shape for k, p in params.named_parameters()}
+
+    def moments(tree):
+        out = {k: _leaf(v, dev) for k, v in _named_leaves(tree, cfg).items()}
+        bad = sorted(set(out) ^ set(shapes)) or [
+            k for k in shapes
+            if out[k].shape != shapes[k] or out[k].dtype != torch.float32]
+        if bad:
+            raise ValueError(f"moments differ from the parameters' names, "
+                             f"shapes or float32 at {bad[:5]}")
+        return {k: out[k] for k in shapes}
+
+    opt = OptState(step=int(np.asarray(opt_tree.step)),
+                   mu=moments(opt_tree.mu), nu=moments(opt_tree.nu))
+    return TrainState(params=params, opt=opt)
 
 
 def decode_cache_from_numpy(cache, *, device="cuda") -> M.DecodeCache:

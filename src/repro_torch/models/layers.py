@@ -14,7 +14,9 @@ The arithmetic follows the reference op for op: products are einsums,
 attention scores are float32 and masked with -1e30, probabilities are
 cast to ``v``'s dtype before the PV product. Decode writes the new
 token's K/V into the cache's tensors in place; a cache index is a host
-integer shared by the whole batch.
+integer shared by the whole batch. Where the reference computes in
+float32, the port computes in float32 or wider (``wide``): a float64
+model stays float64 throughout, which the gradient checks use.
 """
 from __future__ import annotations
 
@@ -69,13 +71,18 @@ def _ones(shape, dtype, gen, device) -> torch.Tensor:
                       device=gen.device if gen is not None else device)
 
 
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or in its own dtype where that is wider."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 # ---------------------------------------------------------------------------
 # norms / rope
 # ---------------------------------------------------------------------------
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
+    xf = wide(x)
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * scale).to(x.dtype)
@@ -97,7 +104,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     angles = positions[..., None].float() * freqs          # (B, S, K/2)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    x1, x2 = torch.chunk(wide(x), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
     return out.to(x.dtype)
 
@@ -127,7 +134,7 @@ def _sdpa(q, k, v, mask):
     None. Materialized float32 softmax."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
     scores = torch.einsum("bsghk,bgtk->bghst", q, k) * scale
-    scores = constrain(scores.float(), "attn_scores_gqa")
+    scores = constrain(wide(scores), "attn_scores_gqa")
     if mask is not None:
         scores = scores.masked_fill(~mask, -1e30)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
@@ -165,22 +172,22 @@ def flash_attention(q, k, v, *, causal: bool, scale: float,
     nk = t // kv_chunk if (t % kv_chunk == 0 and t >= kv_chunk) else 1
     kc = t // nk
     dev = q.device
+    acc_dtype = torch.promote_types(q.dtype, torch.float32)
     skip = causal_skip and causal and s == t
 
     outs = []
     for iq in range(nq):
         qi = q[:, iq * qc:(iq + 1) * qc]                    # (B,qc,G,Hq,K)
         q_pos = iq * qc + torch.arange(qc, device=dev)
-        acc = torch.zeros((b, g, hq, qc, dv), dtype=torch.float32,
-                          device=dev)
-        m = torch.full((b, g, hq, qc), -torch.inf, dtype=torch.float32,
+        acc = torch.zeros((b, g, hq, qc, dv), dtype=acc_dtype, device=dev)
+        m = torch.full((b, g, hq, qc), -torch.inf, dtype=acc_dtype,
                        device=dev)
-        l = torch.zeros((b, g, hq, qc), dtype=torch.float32, device=dev)
+        l = torch.zeros((b, g, hq, qc), dtype=acc_dtype, device=dev)
         for jk in range(min(iq + 1, nk) if skip else nk):
             kj = k[:, :, jk * kc:(jk + 1) * kc]              # (B,G,kc,K)
             vj = v[:, :, jk * kc:(jk + 1) * kc]
             scores = torch.einsum("bqghk,bgtk->bghqt", qi, kj) * scale
-            scores = scores.float()
+            scores = wide(scores)
             if causal:
                 k_pos = jk * kc + torch.arange(kc, device=dev)
                 mask = q_pos[:, None] >= k_pos[None, :]
@@ -190,20 +197,28 @@ def flash_attention(q, k, v, *, causal: bool, scale: float,
             p = torch.exp(scores - m_new[..., None])
             l = l * alpha + p.sum(-1)
             acc = acc * alpha[..., None] + torch.einsum(
-                "bghqt,bgtv->bghqv", p, vj.float())
+                "bghqt,bgtv->bghqv", p, wide(vj))
             m = m_new
         out = (acc / torch.clamp_min(l[..., None], 1e-30)).to(q.dtype)
         outs.append(out.movedim(3, 1))                     # (B,qc,G,Hq,Kv)
     return torch.cat(outs, dim=1)
 
 
-def _check_cache_write(t: int, cache_index: int, s: int) -> None:
-    """The port raises where the reference would drop (s == 1) or clamp
-    (s > 1) a cache write at or past the cache's length."""
-    if not 0 <= cache_index <= t - s:
-        raise ValueError(
-            f"cache write of {s} position(s) at index {cache_index} does "
-            f"not fit a cache of {t} positions")
+def _write_cache(buf: torch.Tensor, new: torch.Tensor, cache_index: int,
+                 dim: int) -> None:
+    """Write ``new``'s positions (along ``dim``) into ``buf`` in place at
+    ``cache_index``, as the reference's updates do: one position at or
+    past the cache's end is dropped (``.at[].set``), and several
+    positions start at ``cache_index`` clamped into ``[0, t - s]``
+    (``dynamic_update_slice``)."""
+    t, s = buf.shape[dim], new.shape[dim]
+    if s == 1:
+        if cache_index >= t:
+            return
+        start = cache_index
+    else:
+        start = min(max(cache_index, 0), t - s)
+    buf.narrow(dim, start, s).copy_(new)
 
 
 def gqa_attention(params, x: torch.Tensor, positions: torch.Tensor,
@@ -219,8 +234,9 @@ def gqa_attention(params, x: torch.Tensor, positions: torch.Tensor,
       - cache is None: full self-attention over x (prefill); when
         return_cache, also emits the packed cache.
       - cache given + cache_index (a host int): decode — new tokens
-        written into the cache in place at cache_index, attention over
-        positions <= cache_index.
+        written into the cache in place at cache_index (``_write_cache``:
+        dropped or clamped at the cache's end), attention over positions
+        <= cache_index.
     Cross-attention (``kv_x``, ``static_kv``) is not ported.
     """
     if kv_x is not None or static_kv is not None:
@@ -241,9 +257,8 @@ def gqa_attention(params, x: torch.Tensor, positions: torch.Tensor,
 
     if cache is not None:
         t = cache.k.shape[2]
-        _check_cache_write(t, cache_index, s)
-        cache.k[:, :, cache_index:cache_index + s] = k
-        cache.v[:, :, cache_index:cache_index + s] = v
+        _write_cache(cache.k, k, cache_index, 2)
+        _write_cache(cache.v, v, cache_index, 2)
         # valid positions: <= current index
         tpos = torch.arange(t, device=x.device)[None, None, None, None, :]
         out = _sdpa(q, cache.k, cache.v, tpos <= cache_index)
@@ -320,9 +335,8 @@ def mla_attention(params, x: torch.Tensor, positions: torch.Tensor,
 
     if cache is not None:
         t = cache.c_kv.shape[1]
-        _check_cache_write(t, cache_index, s)
-        cache.c_kv[:, cache_index:cache_index + s] = ckv
-        cache.k_rope[:, cache_index:cache_index + s] = kr_new
+        _write_cache(cache.c_kv, ckv, cache_index, 1)
+        _write_cache(cache.k_rope, kr_new, cache_index, 1)
         c_all, r_all = cache.c_kv, cache.k_rope
         # Absorbed decode: score directly in the latent space, with no
         # per-step K/V re-expansion.
@@ -330,7 +344,7 @@ def mla_attention(params, x: torch.Tensor, positions: torch.Tensor,
         scores = (torch.einsum("bshc,btc->bhst", q_lat, c_all)
                   + torch.einsum("bshr,btr->bhst", q_rope, r_all)) * scale
         tpos = torch.arange(t, device=x.device)[None, None, None, :]
-        scores = scores.float().masked_fill(~(tpos <= cache_index), -1e30)
+        scores = wide(scores).masked_fill(~(tpos <= cache_index), -1e30)
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         out_lat = torch.einsum("bhst,btc->bshc", probs, c_all)
         out = torch.einsum("bshc,chv->bshv", out_lat, params["w_uv"])
@@ -357,7 +371,7 @@ def mla_attention(params, x: torch.Tensor, positions: torch.Tensor,
             scores = (torch.einsum("bshn,bthn->bhst", q_nope, k_nope)
                       + torch.einsum("bshr,btr->bhst", q_rope, kr_new)) \
                 * scale
-            scores = constrain(scores.float(), "attn_scores_mla")
+            scores = constrain(wide(scores), "attn_scores_mla")
             ar = torch.arange(s, device=x.device)
             mask = ar[None, :] <= ar[:, None]
             scores = scores.masked_fill(~mask[None, None], -1e30)
@@ -426,7 +440,7 @@ def moe_block(params, x: torch.Tensor, cfg: ArchConfig
     _, s, _ = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
 
-    logits = torch.einsum("bsd,de->bse", x.float(), params["router"])
+    logits = torch.einsum("bsd,de->bse", wide(x), params["router"])
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.topk(probs, k, dim=-1)   # (B, S, k)
     gate_vals = gate_vals / torch.clamp_min(

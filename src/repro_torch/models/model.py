@@ -9,6 +9,9 @@ The reference's ``ssm``, ``hybrid``, ``encdec`` and ``vlm`` families are
 reached by no registered config; here they raise NotImplementedError
 (ROADMAP Queue 1).
 
+Each block runs under the config's ``remat`` policy when autograd records
+it (``_maybe_remat``); decode and ``torch.no_grad()`` run it plainly.
+
 Parameters are ``layers.Params`` modules named as the reference's dicts:
 ``embed``, ``final_norm``, ``lm_head`` and ``layers.<i>.{ln1, attn.*, ln2,
 mlp.* | moe.*}``. The layers are always a list (the reference's
@@ -18,10 +21,12 @@ loads either of the reference's layouts. Caches are stacked over layers,
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -32,7 +37,8 @@ FAMILIES = ("dense", "moe")
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
-    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float64": torch.float64}[cfg.dtype]
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -155,6 +161,35 @@ def _apply_block(p, x, positions, cfg: ArchConfig, *, cache=None,
     return x + y, new_kv, aux
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the products
+    with no batch dimension, recompute the rest (JAX's
+    ``checkpoint_dots_with_no_batch_dims``). ``torch.einsum`` lowers a
+    product with no batch dimension (the weight products, such as
+    ``bsd,dhk->bshk``) to a ``bmm`` of batch 1, and attention's and the
+    MoE experts' products to a ``bmm`` over their batch dimensions; one
+    of those is kept too where its batch is 1 (attention at batch 1 with
+    one kv group)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, cfg: ArchConfig):
+    """``fn`` under the config's rematerialization policy (the port of the
+    reference's ``_maybe_remat``): ``"none"`` runs it as is, ``"full"``
+    (or any other value, as there) keeps only its inputs and runs it
+    again in the backward, ``"dots"`` also keeps its weight products."""
+    if cfg.remat == "none":
+        return fn
+    kwargs = dict(use_reentrant=False)
+    if cfg.remat == "dots":
+        kwargs["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(ckpt.checkpoint, fn, **kwargs)
+
+
 def _stack(caches):
     """Per-layer caches -> one cache stacked over layers (L, ...)."""
     return type(caches[0])(*(torch.stack(xs) for xs in zip(*caches)))
@@ -166,9 +201,12 @@ def _run_layers(params, x, positions, cfg: ArchConfig, *,
     total aux loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kvs = []
+    block = _apply_block
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            p.requires_grad for p in params.parameters())):
+        block = _maybe_remat(_apply_block, cfg)
     for lp in params["layers"]:
-        x, kv, a = _apply_block(lp, x, positions, cfg,
-                                return_cache=build_cache)
+        x, kv, a = block(lp, x, positions, cfg, return_cache=build_cache)
         aux = aux + a
         if kv is not None:
             kvs.append(kv)
@@ -210,8 +248,9 @@ def decode_step(params, tokens: torch.Tensor, cache: DecodeCache,
     """One-token decode: tokens (B, 1) -> (logits (B, 1, V), new cache).
 
     Writes each layer's new K/V into ``cache``'s tensors in place at
-    ``cache.index`` and returns the cache with the index advanced; raises
-    ValueError where the write would land at or past ``max_seq``.
+    ``cache.index`` and returns the cache with the index advanced. As in
+    the reference, a write at or past ``max_seq`` is dropped and the step
+    attends over the whole cache.
     """
     _check_family(cfg)
     b = tokens.shape[0]

@@ -1,0 +1,109 @@
+"""AdamW + LR schedule over named tensors (the port of the reference's
+``train/optimizer.py``).
+
+Parameters, gradients and moments are dicts keyed by the model's
+``named_parameters()`` names. Moments are float32 whatever the
+parameters' dtype. The update follows the reference op for op (clip
+scale, bias corrections from ``step + 1``, weight decay on every leaf,
+the parameter recast to its dtype); it is not ``torch.optim.AdamW``,
+whose decoupled decay and eps placement round differently.
+
+The step count is a host integer and the schedule's scalars are computed
+on the host in float32 (numpy), as the reference's traced float32
+scalars are, so an update needs no device sync. The update runs leaf by
+leaf and in place, so the float32 transients of one leaf at a time are
+alive on top of the state.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Mapping, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    peak_lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+
+
+class OptState(NamedTuple):
+    step: int                         # updates taken
+    mu: Dict[str, torch.Tensor]       # float32 first moments, by name
+    nu: Dict[str, torch.Tensor]       # float32 second moments, by name
+
+
+def lr_schedule(cfg: OptimizerConfig, step: int) -> float:
+    """Linear warm-up to ``peak_lr``, then a cosine to ``min_lr_ratio`` x
+    ``peak_lr`` at ``total_steps``; float32 arithmetic, as the reference."""
+    f32 = np.float32
+    s = f32(step)
+    if s < cfg.warmup_steps:
+        return float(f32(cfg.peak_lr) * s / f32(max(cfg.warmup_steps, 1)))
+    progress = np.clip((s - f32(cfg.warmup_steps))
+                       / f32(max(cfg.total_steps - cfg.warmup_steps, 1)),
+                       f32(0), f32(1))
+    cos = f32(cfg.min_lr_ratio) + f32((1 - cfg.min_lr_ratio) * 0.5) \
+        * (f32(1) + np.cos(f32(math.pi) * progress))
+    return float(f32(cfg.peak_lr) * cos)
+
+
+def init_opt_state(params: Mapping[str, torch.Tensor]) -> OptState:
+    """Zero float32 moments shaped as ``params`` (a dict of named tensors,
+    or a module, whose ``named_parameters()`` are taken)."""
+    if isinstance(params, torch.nn.Module):
+        params = dict(params.named_parameters())
+    return OptState(
+        step=0,
+        mu={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for k, p in params.items()},
+        nu={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for k, p in params.items()})
+
+
+def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
+    total = 0
+    for g in tree.values():
+        total = total + torch.sum(torch.square(g.float()))
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def adamw_update(grads: Mapping[str, torch.Tensor], opt: OptState,
+                 params: Mapping[str, torch.Tensor], cfg: OptimizerConfig
+                 ) -> Tuple[Mapping[str, torch.Tensor], OptState, dict]:
+    """One AdamW step. Updates ``params`` and ``opt``'s moments in place
+    and returns (params, the advanced OptState, metrics): ``grad_norm``
+    (a device scalar, before clipping) and ``lr`` (a float)."""
+    step = opt.step + 1
+    gnorm = global_norm(grads)
+    scale = torch.clamp_max(cfg.clip_norm / (gnorm + 1e-9), 1.0)
+    lr = lr_schedule(cfg, step)
+    f32 = np.float32
+    b1c = float(f32(1) - f32(cfg.b1) ** f32(step))
+    b2c = float(f32(1) - f32(cfg.b2) ** f32(step))
+    for name, p in params.items():
+        m, v = opt.mu[name], opt.nu[name]
+        g = grads[name].float() * scale
+        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+        v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+        del g
+        mh = m / b1c
+        vh = v / b2c
+        pf = p.float()
+        delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * pf
+        del mh, vh
+        p.copy_((pf - lr * delta).to(p.dtype))
+    metrics = {"grad_norm": gnorm, "lr": lr}
+    return params, OptState(step=step, mu=opt.mu, nu=opt.nu), metrics

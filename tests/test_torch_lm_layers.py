@@ -298,19 +298,39 @@ def test_mla_attention_parity(impl):
 
 
 def test_cache_write_past_the_end_raises():
-    """The reference drops (s == 1) or clamps (s > 1) such a write; the
-    port refuses it."""
-    _, tcfg = _cfgs("yi-9b")
-    gen = torch.Generator().manual_seed(0)
-    params = TL.init_gqa(gen, tcfg, torch.float32)
-    k = torch.zeros(1, tcfg.num_kv_heads, 8, tcfg.resolved_head_dim)
-    cache = TL.KVCache(k, k.clone())
-    for s, idx in ((1, 8), (3, 6)):
-        x = torch.zeros(1, s, tcfg.d_model)
-        pos = torch.full((1, s), idx)
-        with pytest.raises(ValueError, match="does not fit"):
-            TL.gqa_attention(params, x, pos, tcfg, cache=cache,
-                             cache_index=idx)
+    """A cache write that does not fit raises nowhere and follows the
+    reference: one position at the end (index 8 of 8) is dropped, three
+    positions at index 6 are written from 5 (``dynamic_update_slice``
+    clamps the start), and attention covers positions <= the index. GQA
+    and MLA, outputs and caches."""
+    for arch in ("yi-9b", "minicpm3-4b"):
+        jcfg, tcfg = _cfgs(arch)
+        mla = tcfg.attention == "mla"
+        params = (JL.init_mla if mla else JL.init_gqa)(
+            jax.random.PRNGKey(4), jcfg, jnp.float32)
+        jattend = JL.mla_attention if mla else JL.gqa_attention
+        tattend = TL.mla_attention if mla else TL.gqa_attention
+        b, t = 2, 8
+        _, jc = _jit(jattend, cfg=jcfg, return_cache=True)(
+            params, jnp.asarray(_rand(20, b, t, tcfg.d_model)),
+            _positions(b, t)[0])
+        for s, idx in ((1, 8), (3, 6)):
+            tc = getattr(TL, type(jc).__name__)(
+                *(torch.tensor(np.asarray(a)) for a in jc))
+            x = _rand(21 + s, b, s, tcfg.d_model)
+            jp, tp = _positions(b, s, start=idx)
+            want, jc2 = _jit(lambda p, x, pos, c, i: jattend(
+                p, x, pos, jcfg, cache=c, cache_index=i))(
+                params, jnp.asarray(x), jp, jc, jnp.int32(idx))
+            got, tc2 = tattend(_t(params), torch.tensor(x), tp, tcfg,
+                               cache=tc, cache_index=idx)
+            assert all(a is b_ for a, b_ in zip(tc2, tc))
+            _close(got, want)
+            for a, b_ in zip(tc, jc2):
+                _close(a, b_)
+            if s == 1:                          # dropped: the cache as it was
+                for a, b_ in zip(tc, jc):
+                    np.testing.assert_array_equal(a.numpy(), np.asarray(b_))
 
 
 def test_cross_attention_is_not_ported():

@@ -76,7 +76,9 @@ def _default_device_calls():
     from repro_torch.core.pipeline import RenderConfig
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as lm_serve
+    from repro_torch.launch import train as lm_train
     from repro_torch.models import model
+    from repro_torch.train import data, optimizer, train_step
     from repro_torch.scenes import synthetic, trajectory
     lm_cfg = get_config("yi-9b").reduced()
     eye4 = np.eye(4, dtype=np.float32)
@@ -122,6 +124,14 @@ def _default_device_calls():
             {"layers": []}, lm_cfg),
         "decode_cache_from_numpy": lambda: interop.decode_cache_from_numpy(
             model.init_cache(lm_cfg, 1, 8, device="cpu")),
+        "init_train_state": lambda: train_step.init_train_state(lm_cfg),
+        "train_state_from_numpy": lambda: interop.train_state_from_numpy(
+            {"layers": []}, None, lm_cfg),
+        "batch_at": lambda: data.batch_at(data.DataConfig(), 0),
+        "stream": lambda: next(data.stream(data.DataConfig())),
+        "train_loop": lambda: lm_train.train_loop(
+            lm_cfg, data.DataConfig(), optimizer.OptimizerConfig(),
+            lm_train.RunConfig(steps=1)),
     }
 
 
