@@ -102,6 +102,24 @@ Phases (each prints its own lines; a failed check exits non-zero):
    a seeded direction in float64 against a central difference; and a
    checkpoint save -> restore -> next step that reproduces the
    uninterrupted step exactly (deterministic algorithms on).
+8. Sharded training (phase 7's state freed first): the same minicpm3-4b
+   run through ``launch/train.train_loop(mesh=make_mesh((1, 1), ("data",
+   "model"), "cuda"))`` for SHARD_STEPS steps on a DTensor mesh over an
+   NCCL process group of world size 1 (the machine has one card and
+   NCCL refuses two ranks on one GPU, so every rule's axis has size 1
+   and each leaf is placed ``Replicate()``; meshes of several ranks are
+   held by the gloo tests on CPU ranks). Checks: every loss finite, the
+   first equal to phase 7's bit for bit and the later ones within
+   SHARD_LOSS_GATE; every parameter and moment a DTensor with the
+   placements ``param_shardings`` gives; a checkpoint saved from the
+   mesh written bit for bit, restored onto the mesh and onto the
+   unsharded path bit for bit, and the next step's loss equal on both.
+   Prints the step median against phase 7's and the bound, MFU, peak
+   memory, and one profiled step's launches and idle share.
+8b. Over the same group: ``compressed_psum_grads`` over phase 8's full
+   gradient tree (dequantized + residual = input exactly; timed in turns
+   against a plain all-reduce of each leaf) and ``pipeline_apply`` with
+   one stage on a toy stack at d_model 2,560 against the sequential loop.
 
 The last two lines are the kernels' JSON record and the device record.
 Needs a CUDA GPU; exits non-zero without one.
@@ -1856,6 +1874,27 @@ def train_step_bound(cfg, params, tokens):
     return bytes_ms, "bytes", flops, nbytes
 
 
+def timed_steps(steps):
+    """A wrapper for ``train_step.make_train_step`` whose steps append
+    (CUDA-event ms, metrics) to ``steps``."""
+    def timed(make):
+        def make_timed(*args, **kwargs):
+            step_fn = make(*args, **kwargs)
+
+            def run_step(state, batch):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                state, metrics = step_fn(state, batch)
+                end.record()
+                end.synchronize()
+                steps.append((start.elapsed_time(end), metrics))
+                return state, metrics
+            return run_step
+        return make_timed
+    return timed
+
+
 def phase_train_full(smi):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1883,25 +1922,8 @@ def phase_train_full(smi):
                                 warmup_steps=max(TRAIN_STEPS // 20, 1))
     run = LT.RunConfig(steps=TRAIN_STEPS, log_every=1)
     steps = []
-
-    def timed(make):
-        def make_timed(*args, **kwargs):
-            step_fn = make(*args, **kwargs)
-
-            def run_step(state, batch):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                state, metrics = step_fn(state, batch)
-                end.record()
-                end.synchronize()
-                steps.append((start.elapsed_time(end), metrics))
-                return state, metrics
-            return run_step
-        return make_timed
-
     t0 = time.perf_counter()
-    with Patched(TS, "make_train_step", timed):
+    with Patched(TS, "make_train_step", timed_steps(steps)):
         out = LT.train_loop(cfg, data_cfg, opt_cfg, run,
                             log=lambda m: print(f"  {m}", flush=True))
     loop_s = time.perf_counter() - t0
@@ -2000,7 +2022,7 @@ def phase_train_full(smi):
     free_cuda()
     return {"step_ms": step_ms, "bound_ms": bound_ms, "mfu": mfu,
             "tok_per_s": tokens / step_ms * 1e3, "peak_gb": peak,
-            "launches": n_kernels, "idle": idle}
+            "launches": n_kernels, "idle": idle, "losses": losses}
 
 
 def max_rel_leaf_err(got, want):
@@ -2187,6 +2209,352 @@ def phase_train_checks(smi):
         print(f"  {arch}: {time.perf_counter() - t0:.2f} s", flush=True)
 
 
+# Phase 8: sharded training on a DTensor mesh. The card's machine has one
+# GPU and NCCL refuses two ranks on one device, so the mesh is (1, 1) over
+# an NCCL process group of world size 1: every rule's axis has size 1 and
+# each leaf is placed Replicate(), so this phase shows the mesh path's
+# placement, its DTensor dispatch cost and its checkpoints on the card.
+# The collectives of meshes with more than one rank are held by the gloo
+# tests on CPU ranks (tests/test_torch_dist_*.py).
+SHARD_STEPS = 4
+# Steps after the first against phase 7's (same seed, data, optimizer):
+# the first is bit for bit; later ones differ by the card's
+# nondeterministic adds (the embedding's backward) amplified by AdamW.
+SHARD_LOSS_GATE = 5e-3
+# The pipeline's one stage against the sequential loop, float32 (GEMMs of
+# another row count may sum in another order).
+PIPE_GATE = 1e-5
+PIPE_LAYERS, PIPE_BATCH, PIPE_SEQ, PIPE_MICRO = 4, 8, 16, 4
+
+
+def start_nccl(root):
+    """The default process group: NCCL, world size 1, rank 0, through a
+    FileStore under ``root`` (no port)."""
+    import datetime
+    import tempfile
+    import torch.distributed as dist
+    store = tempfile.mkdtemp(dir=root, prefix=".store_")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(store, "store"), 1),
+        rank=0, world_size=1, device_id=torch.device("cuda", 0),
+        timeout=datetime.timedelta(seconds=600))
+    return store
+
+
+def host_leaves(tree):
+    """{checkpoint key: the leaf's bits on the host} (a DTensor leaf by its
+    local tensor, here the whole tensor; bfloat16 as int16)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.train import checkpoint as C
+    out = {}
+    for k, leaf in C._leaves(tree):
+        if isinstance(leaf, DTensor):
+            leaf = leaf.to_local()
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach()
+            if leaf.dtype == torch.bfloat16:
+                leaf = leaf.view(torch.int16)
+            leaf = leaf.cpu()
+        out[k] = leaf
+    return out
+
+
+def same_bits_as(tree, host):
+    """Every leaf of ``tree`` bit for bit against ``host_leaves``' copy."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.train import checkpoint as C
+    for k, leaf in C._leaves(tree):
+        want = host[k]
+        if not isinstance(leaf, torch.Tensor):
+            if leaf != want:
+                return False
+            continue
+        if isinstance(leaf, DTensor):
+            leaf = leaf.to_local()
+        leaf = leaf.detach()
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.view(torch.int16)
+        if not torch.equal(leaf, want.to(leaf.device)):
+            return False
+    return True
+
+
+def phase_train_mesh(smi, phase7):
+    import shutil
+    import tempfile
+    import warnings
+    from torch.distributed.tensor import DTensor
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import checkpoint as C
+    from repro_torch.train import data as D
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    cfg = get_config(TRAIN_ARCH)
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    print(f"== phase 8: sharded training, {TRAIN_ARCH} at its published "
+          f"width and depth ({cfg.num_layers} layers), {cfg.dtype}, remat "
+          f"{cfg.remat!r}, on a DTensor mesh {dict(S.axis_sizes(mesh))} over "
+          f"an NCCL group of world size 1 (one card: NCCL refuses two ranks "
+          f"on one GPU; the multi-rank collectives are held by the gloo "
+          f"tests) ({smi})", flush=True)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    data_cfg = D.DataConfig(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                            vocab_size=cfg.vocab_size, seed=SEED)
+    # phase 7's optimizer config, so that the schedules agree
+    opt_cfg = O.OptimizerConfig(total_steps=TRAIN_STEPS,
+                                warmup_steps=max(TRAIN_STEPS // 20, 1))
+    run = LT.RunConfig(steps=SHARD_STEPS, log_every=1)
+    steps = []
+    t0 = time.perf_counter()
+    with Patched(TS, "make_train_step", timed_steps(steps)):
+        out = LT.train_loop(cfg, data_cfg, opt_cfg, run, mesh=mesh,
+                            log=lambda m: print(f"  {m}", flush=True))
+    loop_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    state = out["state"]
+    losses = out["history"]
+    del out
+    for i, (ms, m) in enumerate(steps):
+        print(f"  step {i}: loss {float(m['loss'])!r} (phase 7: "
+              f"{phase7['losses'][i]!r}) grad_norm {float(m['grad_norm']):.6f}"
+              f" {ms:.3f} ms (CUDA events)", flush=True)
+    check(len(losses) == SHARD_STEPS and all(math.isfinite(x)
+                                            for x in losses),
+          f"{SHARD_STEPS} steps on the mesh, every loss finite")
+    check(losses[0] == phase7["losses"][0],
+          f"the first step's loss on the mesh equals the unsharded step's "
+          f"(phase 7, same seed) bit for bit: {losses[0]!r}")
+    later = max(abs(a - b) for a, b in zip(losses[1:], phase7["losses"][1:]))
+    check(later <= SHARD_LOSS_GATE,
+          f"later steps within {later:.3g} of phase 7's (gate "
+          f"{SHARD_LOSS_GATE})")
+    want = S.param_shardings(state, mesh)
+    specs = S.param_specs(state, mesh)
+    placed = all(isinstance(p, DTensor) and p.device_mesh == mesh
+                 and p.placements == want.params[k].placements
+                 and state.opt.mu[k].placements == want.params[k].placements
+                 and state.opt.nu[k].placements == want.params[k].placements
+                 for k, p in state.params.named_parameters())
+    n_leaves = sum(1 for _ in state.params.parameters())
+    check(placed, f"all {n_leaves} parameters and their moments are "
+          f"DTensors on the mesh with the placements param_shardings gives")
+    for k in ("embed", "layers.0.attn.w_uq", "layers.0.mlp.w_out"):
+        print(f"    {k}: spec {tuple(specs.params[k])} -> placements "
+              f"{want.params[k].placements}", flush=True)
+    times = [ms for ms, _ in steps[1:]]
+    step_ms = statistics.median(times)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mfu = 6 * cfg.param_count() * tokens / (step_ms / 1e3) \
+        / BF16_FLOPS_PER_S
+    print(f"  train_loop on the mesh ({SHARD_STEPS} steps, init and "
+          f"placement included): {loop_s:.3f} s; peak memory {peak:.2f} GB "
+          f"(phase 7: {phase7['peak_gb']:.2f}) ({smi})", flush=True)
+    print(f"  train step on the mesh: median {step_ms:.3f} ms over "
+          f"{len(times)} steps after the first (min {min(times):.3f}, max "
+          f"{max(times):.3f}; first {steps[0][0]:.3f}) against phase 7's "
+          f"unsharded {phase7['step_ms']:.3f} ms in this run "
+          f"({step_ms / phase7['step_ms']:.3f}x) and the "
+          f"{phase7['bound_ms']:.3f} ms bound "
+          f"({phase7['bound_ms'] / step_ms:.3f} of it); MFU {mfu:.4f}; "
+          f"{tokens / step_ms * 1e3:.1f} tokens/s",
+          flush=True)
+
+    step_fn = TS.make_train_step(cfg, opt_cfg, mesh)
+
+    def mesh_batch(i):
+        batch = D.batch_at(data_cfg, i)
+        return S.distribute(batch, S.batch_shardings(batch, mesh))
+
+    batch = mesh_batch(SHARD_STEPS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy_ms, n_kernels, idle = device_split(prof.events(), wall)
+    del prof
+    print(f"  one mesh step profiled: wall {wall:.3f} ms (profiler on), "
+          f"kernels {busy_ms:.3f} ms over {n_kernels} launches (phase 7: "
+          f"{phase7['launches']}), device idle share {idle:.3f} (phase 7: "
+          f"{phase7['idle']:.3f})", flush=True)
+
+    # Checkpoint: save from the mesh, restore onto the mesh and onto the
+    # unsharded path; the next step under deterministic algorithms.
+    # The state's bits stay on the host to hold the restores against.
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    ckdir = tempfile.mkdtemp(dir=root, prefix=".ckpt_")
+    try:
+        saved = host_leaves(state)
+        t1 = time.perf_counter()
+        path = C.save(ckdir, SHARD_STEPS + 1, state,
+                      metadata={"arch": cfg.name})
+        save_s = time.perf_counter() - t1
+        size = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+        print(f"  checkpoint from the mesh: {size / 1e9:.2f} GB, save "
+              f"{save_s:.2f} s", flush=True)
+        del state
+        free_cuda()
+        nxt = D.batch_at(data_cfg, SHARD_STEPS + 1)
+        results = {}
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                for where in ("unsharded", "mesh"):
+                    t1 = time.perf_counter()
+                    template = LT._template(cfg)
+                    if where == "mesh":
+                        restored, step, _ = C.restore(
+                            ckdir, template,
+                            shardings=S.param_shardings(template, mesh))
+                        fn, b = step_fn, mesh_batch(SHARD_STEPS + 1)
+                    else:
+                        restored, step, _ = C.restore(ckdir, template,
+                                                      device="cuda")
+                        fn, b = TS.make_train_step(cfg, opt_cfg), nxt
+                    load_s = time.perf_counter() - t1
+                    ok = step == SHARD_STEPS + 1 and same_bits_as(
+                        restored, saved)
+                    if where == "mesh":
+                        ok = ok and all(
+                            isinstance(p, DTensor) and p.placements
+                            == want.params[k].placements
+                            for k, p in restored.params.named_parameters())
+                    check(ok, f"restored {where} ({load_s:.2f} s): every "
+                          f"leaf bit for bit as the state saved"
+                          + (", placed by param_shardings"
+                             if where == "mesh" else ""))
+                    restored, m = fn(restored, b)
+                    results[where] = float(m["loss"])
+                    if where == "mesh":
+                        params = restored.params
+                    del restored, m, template
+                    free_cuda()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        check(results["mesh"] == results["unsharded"],
+              f"the step after the restore: loss on the mesh "
+              f"{results['mesh']!r} equals the unsharded path's "
+              f"{results['unsharded']!r}")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    del saved
+    return {"step_ms": step_ms, "mfu": mfu, "peak_gb": peak,
+            "launches": n_kernels, "idle": idle, "params": params,
+            "mesh": mesh, "data_cfg": data_cfg}
+
+
+def phase_comm(smi, shard):
+    """8b: the int8 compressed all-reduce over phase 8's gradient tree
+    and the pipeline's schedule, on the card over the world-1 group."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import compression as CP
+    from repro_torch.distributed import pipeline as PL
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import data as D
+    from repro_torch.train import train_step as TS
+    cfg = get_config(TRAIN_ARCH)
+    mesh, params = shard["mesh"], shard["params"]
+    print(f"== phase 8b: compressed gradient all-reduce and pipeline on the "
+          f"card, world size 1 ({smi})", flush=True)
+    batch = D.batch_at(shard["data_cfg"], SHARD_STEPS + 2)
+    batch = S.distribute(batch, S.batch_shardings(batch, mesh))
+    named = dict(params.named_parameters())
+    with TS.on_mesh(mesh):
+        total, _ = TS.make_loss_fn(cfg, mesh)(params, batch)
+        grads = torch.autograd.grad(total, list(named.values()))
+    del total
+    # each rank's own gradients, as inside the reference's shard_map
+    grads = {k: g.to_local() if isinstance(g, DTensor) else g
+             for k, g in zip(named, grads)}
+    del named, params, shard["params"]
+    free_cuda()
+    group = mesh["data"]
+    n_bytes = lm_bytes(grads.values())
+
+    def compressed():
+        return CP.compressed_psum_grads(grads, group,
+                                        CP.zero_residuals(grads))
+
+    def plain():
+        for g in grads.values():
+            dist.all_reduce(g.clone(), group=group.get_group())
+
+    mean, res = compressed()
+    exact = True
+    for k, g in grads.items():
+        x = g.float()
+        deq = CP.dequantize_int8(*CP.quantize_int8(x))
+        exact = exact and torch.equal(deq + res[k], x) \
+            and mean[k].dtype == g.dtype
+        del x, deq
+    check(exact, f"compressed_psum_grads over {len(grads)} leaves "
+          f"({n_bytes / 1e9:.2f} GB of {cfg.dtype} gradients): dequantized "
+          f"+ residual = input exactly, means in the gradients' dtype")
+    del mean, res
+    free_cuda()
+    ms = {"plain": [], "compressed": []}
+    for name in ("plain", "compressed", "compressed", "plain"):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = {"plain": plain, "compressed": compressed}[name]()
+        end.record()
+        end.synchronize()
+        ms[name].append(start.elapsed_time(end))
+        del out
+        free_cuda()
+    print(f"  over the tree, in turns (plain, compressed, compressed, "
+          f"plain): all_reduce of each leaf {ms['plain'][0]:.3f} / "
+          f"{ms['plain'][1]:.3f} ms, compressed_psum_grads (int8 + error "
+          f"feedback) {ms['compressed'][0]:.3f} / {ms['compressed'][1]:.3f}"
+          f" ms (world size 1: no bytes cross a link)", flush=True)
+    del grads
+    free_cuda()
+
+    pmesh = make_mesh((1, 1), ("pod", "data"), "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    d = cfg.d_model
+    w = torch.randn((PIPE_LAYERS, d, d), generator=gen, device="cuda") \
+        / d ** 0.5
+    bvec = torch.randn((PIPE_LAYERS, d), generator=gen, device="cuda") * 0.1
+    x = torch.randn((PIPE_BATCH, PIPE_SEQ, d), generator=gen, device="cuda")
+
+    def layer(lp, h):
+        wi, bi = lp
+        return torch.tanh(h @ wi + bi)
+
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = PL.pipeline_apply(layer, (w, bvec), x, mesh=pmesh,
+                            num_micro=PIPE_MICRO)
+    torch.cuda.synchronize()
+    pipe_ms = (time.perf_counter() - t1) * 1e3
+    ref = x
+    for i in range(PIPE_LAYERS):
+        ref = layer((w[i], bvec[i]), ref)
+    err = float((out - ref).abs().max())
+    check(bool(torch.isfinite(out).all()) and err <= PIPE_GATE,
+          f"pipeline_apply, one stage, {PIPE_LAYERS} layers at d {d}, batch "
+          f"{PIPE_BATCH} x {PIPE_SEQ}, {PIPE_MICRO} microbatches "
+          f"(bubble {PL.bubble_fraction(1, PIPE_MICRO):.3f}): max|d| "
+          f"{err:.3g} against the sequential loop (gate {PIPE_GATE}); "
+          f"{pipe_ms:.3f} ms")
+    return {"plain_ms": ms["plain"], "compressed_ms": ms["compressed"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA GPU (torch.cuda.is_available() is "
@@ -2250,6 +2618,26 @@ def main():
           f"tokens/s, peak memory {train['peak_gb']:.2f} GB, "
           f"{train['launches']} launches a step, idle share "
           f"{train['idle']:.3f} ({smi})", flush=True)
+    import shutil
+    import torch.distributed as dist
+    store = start_nccl(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        shard = phase_train_mesh(smi, train)
+        comm = phase_comm(smi, shard)
+        print(f"phase 8 summary: {TRAIN_ARCH} bf16 train step on a (1, 1) "
+              f"DTensor mesh (NCCL, world size 1) {shard['step_ms']:.3f} ms "
+              f"against phase 7's {train['step_ms']:.3f} ms unsharded and "
+              f"the {train['bound_ms']:.3f} ms bound, MFU "
+              f"{shard['mfu']:.4f}, peak memory {shard['peak_gb']:.2f} GB, "
+              f"{shard['launches']} launches a step, idle share "
+              f"{shard['idle']:.3f}; 8b: all_reduce of the gradient tree "
+              f"{min(comm['plain_ms']):.3f} ms, compressed "
+              f"{min(comm['compressed_ms']):.3f} ms ({smi})", flush=True)
+        del shard
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

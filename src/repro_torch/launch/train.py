@@ -8,8 +8,12 @@
   - straggler watchdog: a step longer than ``step_timeout_s`` is logged
     and counted (the decision layer that acts on such failures is
     ``repro_torch.distributed.fault_tolerance``);
-  - one device: the reference's optional mesh is not ported, ``mesh``
-    must be None (ROADMAP Queue 1, item 8).
+  - optional mesh: with a ``DeviceMesh`` (``launch/mesh.py``) the same
+    loop runs sharded by the production rules
+    (``distributed/sharding.py``): a fresh state is placed by
+    ``param_shardings``, a resumed one restored onto the mesh by
+    ``restore(shardings=...)``, each batch placed by
+    ``batch_shardings``; every rank of the mesh runs the loop.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --smoke \\
@@ -25,6 +29,7 @@ from typing import Optional
 
 from repro_torch import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.distributed import sharding as S
 from repro_torch.models import model as M
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import train_step as TS
@@ -50,19 +55,28 @@ def _template(cfg) -> TS.TrainState:
 def train_loop(cfg, data_cfg: DataConfig, opt_cfg: OptimizerConfig,
                run: RunConfig, *, mesh=None, log=print,
                device="cuda") -> dict:
-    TS.check_mesh(mesh)
-    dev = resolve_device(device)
+    """Train ``run.steps`` steps, resuming from ``run.ckpt_dir``'s latest
+    checkpoint if there is one. With ``mesh`` the device is the mesh's
+    and ``device`` is not read."""
     step_fn = TS.make_train_step(cfg, opt_cfg, mesh)
+    dev = resolve_device(mesh.device_type if mesh is not None else device)
 
     start_step = 0
     state = None
     if run.ckpt_dir and ckpt.latest_step(run.ckpt_dir) is not None:
-        state, start_step, meta = ckpt.restore(run.ckpt_dir, _template(cfg),
-                                               device=dev)
+        template = _template(cfg)
+        shardings = None if mesh is None else S.param_shardings(template,
+                                                                  mesh)
+        state, start_step, meta = ckpt.restore(run.ckpt_dir, template,
+                                               device=dev,
+                                               shardings=shardings)
         log(f"[resume] restored step {start_step} "
             f"(loss was {meta.get('loss', '?')})")
-    if state is None:
+    if state is None and mesh is None:
         state = TS.init_train_state(cfg, seed=data_cfg.seed, device=dev)
+    elif state is None:
+        state = TS.init_train_state(cfg, seed=data_cfg.seed, device=dev,
+                                    mesh=mesh)
 
     history = []
     stragglers = 0
@@ -70,6 +84,8 @@ def train_loop(cfg, data_cfg: DataConfig, opt_cfg: OptimizerConfig,
     for step in range(start_step, run.steps):
         t0 = time.time()
         batch = batch_at(data_cfg, step, device=dev)
+        if mesh is not None:
+            batch = S.distribute(batch, S.batch_shardings(batch, mesh))
         state, metrics = step_fn(state, batch)
         dt = time.time() - t0
         if dt > run.step_timeout_s:

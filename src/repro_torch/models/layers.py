@@ -20,6 +20,7 @@ model stays float64 throughout, which the gradient checks use.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -27,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.sharding_hooks import constrain, get_flag
+from repro_torch.models.sharding_hooks import constrain, get_flag, on_local
 
 
 class Params(nn.Module):
@@ -482,13 +483,34 @@ def decode_capacity(cfg: ArchConfig, t: int) -> int:
 
 def _moe_decode_dispatch(params, x, gate_vals, expert_idx, cfg):
     """Decode-regime MoE: flat dispatch over the (tiny) token batch into
-    an (E, C, d) expert buffer capped at ``decode_capacity``."""
+    an (E, C, d) expert buffer capped at ``decode_capacity``. The dispatch
+    and the combine flatten the batch, so on a mesh they run replicated
+    (``on_local(..., rows=False)``)."""
     b, s, d = x.shape
-    e, k = cfg.num_experts, cfg.experts_per_token
+    capacity = decode_capacity(cfg, b * s)
+    hbuf, slot, weight, tok = on_local(
+        functools.partial(_decode_dispatch, e=cfg.num_experts,
+                          capacity=capacity),
+        x, gate_vals, expert_idx, rows=False)
+    hbuf = constrain(hbuf, "moe_buf_decode")
+    hin = torch.einsum("ecd,edf->ecf", hbuf, params["w_in"])
+    hg = torch.einsum("ecd,edf->ecf", hbuf, params["w_gate"])
+    act = (F.silu(hg) * hin).contiguous()      # see _moe_dispatch_per_row
+    hout = torch.einsum("ecf,efd->ecd", act, params["w_out"])
+    hout = constrain(hout, "moe_buf_decode")
+    y = on_local(functools.partial(_decode_combine, t=b * s),
+                 hout, slot, weight, tok, rows=False)
+    return y.reshape(b, s, d)
+
+
+def _decode_dispatch(x, gate_vals, expert_idx, *, e: int, capacity: int):
+    """The decode dispatch on plain tensors: the (E, C, d) buffer, and
+    each (token, choice)'s slot, gate weight (zero where dropped) and
+    token."""
+    b, s, d = x.shape
+    k = expert_idx.shape[-1]
     t = b * s
     tk = t * k
-    capacity = decode_capacity(cfg, t)
-
     xf = x.reshape(t, d)
     flat_e = expert_idx.reshape(tk)
     flat_g = gate_vals.reshape(tk)
@@ -501,17 +523,20 @@ def _moe_decode_dispatch(params, x, gate_vals, expert_idx, cfg):
 
     buf = torch.zeros((e * capacity + 1, d), dtype=x.dtype, device=x.device)
     buf[slot] = xf[stok] * keep[:, None].to(x.dtype)
-    hbuf = constrain(buf[:-1].reshape(e, capacity, d), "moe_buf_decode")
-    hin = torch.einsum("ecd,edf->ecf", hbuf, params["w_in"])
-    hg = torch.einsum("ecd,edf->ecf", hbuf, params["w_gate"])
-    hout = torch.einsum("ecf,efd->ecd", F.silu(hg) * hin, params["w_out"])
-    hout = constrain(hout, "moe_buf_decode")
+    return buf[:-1].reshape(e, capacity, d), slot, sg * keep, stok
+
+
+def _decode_combine(hout, slot, weight, tok, *, t: int):
+    """The decode combine on plain tensors: (T, d), each token's gated
+    sum of its experts' outputs."""
+    e, capacity, d = hout.shape
     hflat = torch.cat([hout.reshape(e * capacity, d),
-                       torch.zeros((1, d), dtype=x.dtype, device=x.device)])
-    contrib = hflat[slot] * (sg * keep)[:, None].to(x.dtype)
-    y = torch.zeros((t, d), dtype=x.dtype, device=x.device)
-    y.index_add_(0, stok, contrib)
-    return y.reshape(b, s, d)
+                       torch.zeros((1, d), dtype=hout.dtype,
+                                   device=hout.device)])
+    contrib = hflat[slot] * weight[:, None].to(hout.dtype)
+    y = torch.zeros((t, d), dtype=hout.dtype, device=hout.device)
+    y.index_add_(0, tok, contrib)
+    return y
 
 
 def row_capacity(cfg: ArchConfig, s: int) -> int:
@@ -524,12 +549,34 @@ def row_capacity(cfg: ArchConfig, s: int) -> int:
 
 
 def _moe_dispatch_per_row(params, x, gate_vals, expert_idx, cfg):
-    """Row-local sort-based dispatch with capacity cap."""
+    """Row-local sort-based dispatch with capacity cap. The dispatch and
+    the combine treat each batch row on its own, so on a mesh each rank
+    runs them on its rows (``on_local``)."""
     b, s, d = x.shape
-    e, k = cfg.num_experts, cfg.experts_per_token
-    tk = s * k
     capacity = row_capacity(cfg, s)
+    hbuf, slot, weight, tok = on_local(
+        functools.partial(_row_dispatch, e=cfg.num_experts,
+                          capacity=capacity), x, gate_vals, expert_idx)
+    hbuf = constrain(hbuf, "moe_buf")
+    hin = torch.einsum("becd,edf->becf", hbuf, params["w_in"])
+    hg = torch.einsum("becd,edf->becf", hbuf, params["w_gate"])
+    # contiguous(): on a mesh, DTensor gives the product the permuted
+    # global strides of the einsums' outputs, which its local shards do
+    # not have, and the next einsum's view of it then fails.
+    act = (F.silu(hg) * hin).contiguous()
+    hout = torch.einsum("becf,efd->becd", act, params["w_out"])
+    hout = constrain(hout, "moe_buf")
+    return on_local(functools.partial(_row_combine, s=s),
+                    hout, slot, weight, tok)
 
+
+def _row_dispatch(x, gate_vals, expert_idx, *, e: int, capacity: int):
+    """The per-row dispatch on plain tensors: the (B, E, C, d) buffer,
+    and each row's (token, choice) slots, gate weights (zero where
+    dropped) and token indices within the row."""
+    b, s, d = x.shape
+    k = expert_idx.shape[-1]
+    tk = s * k
     flat_e = expert_idx.reshape(b, tk)
     flat_g = gate_vals.reshape(b, tk)
     flat_tok = torch.arange(s, device=x.device).repeat_interleave(k)
@@ -546,16 +593,18 @@ def _moe_dispatch_per_row(params, x, gate_vals, expert_idx, cfg):
     buf = torch.zeros((b, e * capacity + 1, d), dtype=x.dtype,
                       device=x.device)
     buf[rows, slot] = gathered
-    hbuf = constrain(buf[:, :-1].reshape(b, e, capacity, d), "moe_buf")
-    hin = torch.einsum("becd,edf->becf", hbuf, params["w_in"])
-    hg = torch.einsum("becd,edf->becf", hbuf, params["w_gate"])
-    hout = torch.einsum("becf,efd->becd", F.silu(hg) * hin, params["w_out"])
-    hout = constrain(hout, "moe_buf")
+    return buf[:, :-1].reshape(b, e, capacity, d), slot, sg * keep, stok
+
+
+def _row_combine(hout, slot, weight, tok, *, s: int):
+    """The per-row combine on plain tensors: (B, S, d), each token's
+    gated sum of its experts' outputs."""
+    b, e, capacity, d = hout.shape
     hflat = torch.cat([hout.reshape(b, e * capacity, d),
-                       torch.zeros((b, 1, d), dtype=x.dtype,
-                                   device=x.device)], dim=1)
-    contrib = hflat[rows, slot] * (sg * keep)[..., None].to(x.dtype)
-    y = torch.zeros((b * s, d), dtype=x.dtype, device=x.device)
-    y.index_add_(0, (rows * s + stok).reshape(b * tk),
-                 contrib.reshape(b * tk, d))
+                       torch.zeros((b, 1, d), dtype=hout.dtype,
+                                   device=hout.device)], dim=1)
+    rows = torch.arange(b, device=hout.device)[:, None]
+    contrib = hflat[rows, slot] * weight[..., None].to(hout.dtype)
+    y = torch.zeros((b * s, d), dtype=hout.dtype, device=hout.device)
+    y.index_add_(0, (rows * s + tok).reshape(-1), contrib.reshape(-1, d))
     return y.reshape(b, s, d)

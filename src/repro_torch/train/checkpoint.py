@@ -16,18 +16,32 @@ Layout per step:  <dir>/step_<n>/arrays.npz + manifest.json
 numpy has no bfloat16: a bfloat16 leaf is stored as its raw 16-bit
 patterns (int16) and its manifest dtype says how to read them back, so a
 restore is bit-exact.
+
+On a mesh: ``save`` writes each DTensor leaf as its full tensor, in the
+same layout and keys, so nothing about the mesh is persisted; every rank
+joins each leaf's gather, rank 0 writes, and a barrier follows.
+``restore(..., shardings=...)`` places every leaf by the TARGET
+``Sharding`` (``distributed.sharding.param_shardings`` of the template):
+loading onto a different mesh (elastic re-mesh) is just other
+shardings.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
 import tempfile
+import zipfile
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed import sharding as S
 
 def _path(name: str) -> str:
     """A parameter name (``layers.0.attn.wq``) as a key path."""
@@ -36,8 +50,10 @@ def _path(name: str) -> str:
 
 def _leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
     """(key, leaf) of NamedTuples, dicts, modules (their named parameters)
-    and leaves (tensors and ints)."""
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+    and leaves (tensors, ints and ``Sharding`` records)."""
+    if isinstance(tree, S.Sharding):
+        yield prefix[:-1], tree
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
         for f in tree._fields:
             yield from _leaves(getattr(tree, f), f"{prefix}.{f}/")
     elif isinstance(tree, dict):
@@ -63,26 +79,49 @@ def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
 
 def save(ckpt_dir: str, step: int, tree, *, metadata: Optional[dict] = None,
          keep: int = 3) -> str:
-    """Atomically persist ``tree``; prunes old steps beyond ``keep``."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    flat, dtypes = {}, {}
-    for k, leaf in _leaves(tree):
-        flat[k], dtypes[k] = _to_numpy(leaf)
+    """Atomically persist ``tree``; prunes old steps beyond ``keep``.
+    Leaves are written one at a time (an ``np.savez`` archive, streamed),
+    so the host holds one leaf, not the tree. A tree with DTensor leaves
+    is saved by every rank of their mesh together (rank 0 writes)."""
+    leaves = list(_leaves(tree))
+    mesh = next((x.device_mesh for _, x in leaves
+                 if isinstance(x, DTensor)), None)
+    writer = mesh is None or dist.get_rank() == 0
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
-    tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
+    tmp = None
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
     try:
-        np.savez(os.path.join(tmp, "arrays.npz"), **flat)
-        manifest = {"step": step, "keys": sorted(flat.keys()),
-                    "dtypes": dtypes, "metadata": metadata or {}}
-        with open(os.path.join(tmp, "manifest.json"), "w") as f:
-            json.dump(manifest, f)
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        os.rename(tmp, final)
+        dtypes = {}
+        with (zipfile.ZipFile(os.path.join(tmp, "arrays.npz"), "w",
+                              zipfile.ZIP_STORED, allowZip64=True)
+              if writer else contextlib.nullcontext()) as zf:
+            for k, leaf in leaves:
+                if isinstance(leaf, DTensor):
+                    leaf = leaf.full_tensor()   # every rank joins
+                if not writer:
+                    continue
+                a, dtypes[k] = _to_numpy(leaf)
+                with zf.open(f"{k}.npy", "w", force_zip64=True) as f:
+                    np.lib.format.write_array(f, a, allow_pickle=False)
+                del a
+        if writer:
+            manifest = {"step": step, "keys": sorted(dtypes),
+                        "dtypes": dtypes, "metadata": metadata or {}}
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(manifest, f)
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)
     except BaseException:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
         raise
-    _prune(ckpt_dir, keep)
+    if writer:
+        _prune(ckpt_dir, keep)
+    if mesh is not None:
+        dist.barrier()
     return final
 
 
@@ -101,14 +140,18 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def _from_numpy(arr: np.ndarray, saved_dtype: Optional[str], like,
-                device) -> Any:
+                device, sharding=None) -> Any:
     """A saved array as a leaf like the template's ``like``: a tensor of
-    its dtype on ``device`` (or its own), or a Python int."""
+    its dtype on ``device`` (or its own), placed by ``sharding`` when
+    one is given, or a Python int."""
     if not isinstance(like, torch.Tensor):
         return type(like)(arr)
     t = torch.from_numpy(np.ascontiguousarray(arr))
     if saved_dtype is not None and saved_dtype != arr.dtype.name:
         t = t.view(getattr(torch, saved_dtype))
+    if sharding is not None:
+        dev = torch.device(sharding.mesh.device_type)
+        return S.place(t.to(device=dev, dtype=like.dtype), sharding)
     dev = like.device if device is None else torch.device(device)
     return t.to(device=dev, dtype=like.dtype)
 
@@ -134,13 +177,15 @@ def _rebuild(tree, prefix: str, values: Dict[str, Any]):
 
 
 def restore(ckpt_dir: str, template, *, step: Optional[int] = None,
-            device=None):
+            device=None, shardings=None):
     """Load into the structure of ``template`` (a tree as ``save`` takes;
     its tensors may live on the ``meta`` device, which allocates nothing;
     its modules' parameters are replaced by the restored ones).
 
     Each leaf takes the template leaf's dtype and is placed on ``device``
-    (default: the template leaf's). Missing or extra keys raise
+    (default: the template leaf's), or, with ``shardings`` (a tree
+    congruent with ``template``, as ``param_shardings`` gives), on its
+    ``Sharding``'s mesh: the elastic re-mesh path. Missing or extra keys raise
     ``ValueError("checkpoint/template mismatch ...")``, a shape that
     differs raises ValueError. Returns (tree, step, metadata).
     """
@@ -159,6 +204,7 @@ def restore(ckpt_dir: str, template, *, step: Optional[int] = None,
     if missing or extra:
         raise ValueError(f"checkpoint/template mismatch: missing="
                          f"{sorted(missing)[:5]} extra={sorted(extra)[:5]}")
+    flat_shard = {} if shardings is None else dict(_leaves(shardings))
     values = {}
     with np.load(os.path.join(d, "arrays.npz")) as data:
         for key, like in flat_template.items():
@@ -167,5 +213,6 @@ def restore(ckpt_dir: str, template, *, step: Optional[int] = None,
                 else np.shape(like)
             if arr.shape != shape:
                 raise ValueError(f"{key}: shape {arr.shape} != {shape}")
-            values[key] = _from_numpy(arr, dtypes.get(key), like, device)
+            values[key] = _from_numpy(arr, dtypes.get(key), like, device,
+                                      flat_shard.get(key))
     return _rebuild(template, "", values), step, manifest["metadata"]

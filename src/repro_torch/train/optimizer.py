@@ -22,6 +22,7 @@ from typing import Dict, Mapping, NamedTuple, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,23 +61,31 @@ def lr_schedule(cfg: OptimizerConfig, step: int) -> float:
 
 def init_opt_state(params: Mapping[str, torch.Tensor]) -> OptState:
     """Zero float32 moments shaped as ``params`` (a dict of named tensors,
-    or a module, whose ``named_parameters()`` are taken)."""
+    or a module, whose ``named_parameters()`` are taken); a DTensor
+    parameter's moments are DTensors of its placements."""
     if isinstance(params, torch.nn.Module):
         params = dict(params.named_parameters())
     return OptState(
         step=0,
-        mu={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        mu={k: torch.zeros_like(p, dtype=torch.float32)
             for k, p in params.items()},
-        nu={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        nu={k: torch.zeros_like(p, dtype=torch.float32)
             for k, p in params.items()})
 
 
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares.
+    DTensor leaves give the global norm, as a plain tensor equal on every
+    rank."""
     total = 0
     for g in tree.values():
         total = total + torch.sum(torch.square(g.float()))
-    return torch.sqrt(total)
+    norm = torch.sqrt(total)
+    return norm.full_tensor() if isinstance(norm, DTensor) else norm
+
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    return x.to_local() if isinstance(x, DTensor) else x
 
 
 @torch.no_grad()
@@ -85,7 +94,8 @@ def adamw_update(grads: Mapping[str, torch.Tensor], opt: OptState,
                  ) -> Tuple[Mapping[str, torch.Tensor], OptState, dict]:
     """One AdamW step. Updates ``params`` and ``opt``'s moments in place
     and returns (params, the advanced OptState, metrics): ``grad_norm``
-    (a device scalar, before clipping) and ``lr`` (a float)."""
+    (a device scalar, before clipping) and ``lr`` (a float). DTensor
+    gradients must have their parameters' placements."""
     step = opt.step + 1
     gnorm = global_norm(grads)
     scale = torch.clamp_max(cfg.clip_norm / (gnorm + 1e-9), 1.0)
@@ -93,9 +103,11 @@ def adamw_update(grads: Mapping[str, torch.Tensor], opt: OptState,
     f32 = np.float32
     b1c = float(f32(1) - f32(cfg.b1) ** f32(step))
     b2c = float(f32(1) - f32(cfg.b2) ** f32(step))
+    # Elementwise from here: a DTensor's parameter, gradient and moments
+    # share placements, so each rank updates its own shards.
     for name, p in params.items():
-        m, v = opt.mu[name], opt.nu[name]
-        g = grads[name].float() * scale
+        m, v, p = _local(opt.mu[name]), _local(opt.nu[name]), _local(p)
+        g = _local(grads[name]).float() * scale
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
         del g

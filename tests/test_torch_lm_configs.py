@@ -92,7 +92,7 @@ def test_constrain_is_identity_without_a_hook():
 
 def test_constrain_refuses_a_sharding_hook():
     thooks.set_hooks({"residual": object()})
-    with pytest.raises(NotImplementedError, match="multi-card placement"):
+    with pytest.raises(ValueError, match="'residual'.*not a DTensor"):
         thooks.constrain(torch.zeros(1), "residual")
 
 

@@ -270,10 +270,12 @@ def test_remat_only_where_autograd_records():
 
 
 def test_mesh_is_not_ported():
+    """The mesh is ported (``tests/test_torch_dist_train.py``); what is
+    not a ``DeviceMesh`` is refused."""
     cfg = tget("yi-9b").reduced()
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TT.make_train_step(cfg, TO.OptimizerConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TT.make_loss_fn(cfg, mesh=object())
 
 

@@ -173,7 +173,17 @@ def test_checkpoint_write_failure_leaves_no_litter(tiny, tmp_path,
     def fail(*args, **kwargs):
         raise OSError("no space left on device")
 
-    monkeypatch.setattr(np, "savez", fail)
+    # the archive is written leaf by leaf: fail on the second leaf
+    real = np.lib.format.write_array
+    calls = []
+
+    def fail_later(*args, **kwargs):
+        calls.append(1)
+        if len(calls) > 1:
+            fail()
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(np.lib.format, "write_array", fail_later)
     with pytest.raises(OSError):
         TC.save(d, 2, state)
     assert sorted(os.listdir(d)) == ["step_00000001"]
@@ -308,8 +318,10 @@ def test_entry_points_default_to_the_gpu(tiny):
 
 
 def test_mesh_is_not_ported(tiny):
+    """The mesh is ported (``tests/test_torch_dist_train.py``); what is
+    not a ``DeviceMesh`` is refused."""
     cfg, data, opt = tiny
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TLT.train_loop(cfg, data, opt, TLT.RunConfig(steps=1), mesh=object(),
                        **QUIET)
 
