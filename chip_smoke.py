@@ -93,8 +93,9 @@ Phases (each prints its own lines; a failed check exits non-zero):
    after the first against its bound (the larger of the executed FLOPs
    over the bf16 peak and the bytes the step must move over the HBM
    rate), MFU (6 N D over the step time at the bf16 peak), tokens/s and
-   peak memory; one step profiled (launches, idle share, top kernels)
-   and one more split into forward, backward and optimizer.
+   peak memory; one step profiled (launches, idle share, top kernels),
+   one counted under ``FlopCounterMode`` (phase 9b's reference) and one
+   more split into forward, backward and optimizer.
 7b. The four registered configs at full width, depth cut to
    TRAIN_CHECK_LAYERS layers, float32 with TF32 off: one train step with
    ``remat="full"`` against ``"none"`` (loss, gradients and updated
@@ -120,6 +121,20 @@ Phases (each prints its own lines; a failed check exits non-zero):
    gradient tree (dequantized + residual = input exactly; timed in turns
    against a plain all-reduce of each leaf) and ``pipeline_apply`` with
    one stage on a toy stack at d_model 2,560 against the sequential loop.
+9. The dry-run (``launch/dryrun.py``) at the four configs' published
+   widths: every shape on the fake 16 x 16 group and yi-9b decode_32k on
+   2 x 16 x 16, each cell a ``python -m repro_torch.launch.dryrun``
+   process, DRYRUN_PROCS at once (a fake group cannot share a process
+   with phase 8's NCCL one). Every applicable cell must be ``ok`` and
+   ``long_500k`` skipped with the reference's reason; prints each
+   cell's per-device FLOPs, bytes, collective bytes by kind, memory and
+   seconds, and its ``launch/roofline.analyze`` terms on H100 constants.
+9b. Phase 7's own cell counted on a (1, 1) fake mesh: its FLOPs equal
+   phase 7's ``FlopCounterMode`` count of a real step exactly; its
+   predicted peak memory (arguments + temp) within DRYRUN_MEM_BAND of
+   phase 7's measured peak; the ratio of its FLOPs to
+   ``train_step_bound``'s and of the roofline's bound to phase 7's
+   median step.
 
 The last two lines are the kernels' JSON record and the device record.
 Needs a CUDA GPU; exits non-zero without one.
@@ -140,10 +155,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# The card's published peaks (H100 SXM data sheet, 700 W; dense rates).
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989.4e12
+# The card's published peaks (H100 SXM data sheet, 700 W; dense rates),
+# one source for this script and the port's roofline.
+from repro_torch.hardware import (BF16_FLOPS_PER_S,  # noqa: E402
+                                  FP32_FLOPS_PER_S, HBM_BYTES_PER_S)
 # Floating-point operations the blend needs per (pixel, real lane) reached
 # while the pixel is not yet done: offsets 2, power 9, exp 1, alpha 3,
 # stop test 1.
@@ -1898,6 +1913,7 @@ def timed_steps(steps):
 def phase_train_full(smi):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import get_config
     from repro_torch.launch import train as LT
     from repro_torch.train import data as D
@@ -1980,6 +1996,15 @@ def phase_train_full(smi):
     kernels_by_name(prof.events(), 8)
     del prof
 
+    # One more step under FlopCounterMode: the FLOPs phase 9b's fake count
+    # of this cell must equal.
+    with FlopCounterMode(display=False) as counter:
+        state, _ = step_fn(state, batch)
+    counted = counter.get_total_flops()
+    print(f"  one train step under FlopCounterMode: {counted} FLOPs "
+          f"({counted / flops:.4f} of train_step_bound's {flops / 1e12:.2f} "
+          f"TFLOP)", flush=True)
+
     # One more step split into its three parts, with a sync after each so
     # that each kernel runs inside the part that launched it.
     loss_fn = TS.make_loss_fn(cfg)
@@ -2022,7 +2047,8 @@ def phase_train_full(smi):
     free_cuda()
     return {"step_ms": step_ms, "bound_ms": bound_ms, "mfu": mfu,
             "tok_per_s": tokens / step_ms * 1e3, "peak_gb": peak,
-            "launches": n_kernels, "idle": idle, "losses": losses}
+            "launches": n_kernels, "idle": idle, "losses": losses,
+            "flops_counted": counted, "bound_flops": flops}
 
 
 def max_rel_leaf_err(got, want):
@@ -2555,6 +2581,176 @@ def phase_comm(smi, shard):
     return {"plain_ms": ms["plain"], "compressed_ms": ms["compressed"]}
 
 
+# Phase 9: the dry-run (launch/dryrun.py) on fake process groups of 256
+# and 512 ranks at the four configs' published widths: each cell in a
+# process of its own (a fake group cannot share a process with phase 8's
+# NCCL one), DRYRUN_PROCS at once on the host's cores. The fake tensors
+# hold no memory and the card runs nothing; the cells hold the port's
+# multi-rank DTensor programs on the card's own torch.
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+DRYRUN_MULTI_POD = (("yi-9b", "decode_32k"),)
+DRYRUN_PROCS = 8
+DRYRUN_TIMEOUT_S = 600
+DRYRUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "dryrun")
+
+
+def run_procs(cmds, env, procs, timeout, log_dir):
+    """Run each argument list in ``cmds`` as a process, ``procs`` at once;
+    {index: (exit code, wall s)}. Each one's output goes to a log under
+    ``log_dir``; a process past ``timeout`` is killed (code None)."""
+    pending, running, done = list(enumerate(cmds)), {}, {}
+    while pending or running:
+        while pending and len(running) < procs:
+            i, cmd = pending.pop(0)
+            log = open(os.path.join(log_dir, f"cell_{i}.log"), "w")
+            running[i] = (subprocess.Popen(cmd, env=env, stdout=log,
+                                           stderr=subprocess.STDOUT),
+                          time.perf_counter(), log)
+        for i, (proc, t0, log) in list(running.items()):
+            wall = time.perf_counter() - t0
+            if proc.poll() is None and wall < timeout:
+                continue
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+            done[i] = (proc.returncode if wall < timeout else None, wall)
+            del running[i]
+        time.sleep(0.5)
+    return done
+
+
+def phase_dryrun(smi):
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.launch import roofline as RL
+    cells = [(a, sh, False) for a in LM_ARCHS for sh in DRYRUN_SHAPES] + \
+        [(a, sh, True) for a, sh in DRYRUN_MULTI_POD]
+    print(f"== phase 9: dry-run on fake process groups, the four configs at "
+          f"their published widths: {len(cells)} cells, {DRYRUN_PROCS} "
+          f"processes at once ({smi}); torch {torch.__version__}",
+          flush=True)
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    os.makedirs(DRYRUN_DIR)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    cmds = [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+             "--shape", sh] + (["--multi-pod"] if mp else [])
+            for a, sh, mp in cells]
+    t0 = time.perf_counter()
+    done = run_procs(cmds, env, DRYRUN_PROCS, DRYRUN_TIMEOUT_S, DRYRUN_DIR)
+    print(f"  all cells: {time.perf_counter() - t0:.1f} s wall", flush=True)
+    for i, (arch, shape, mp) in enumerate(cells):
+        mesh = "pod2x16x16" if mp else "pod16x16"
+        rc, wall = done[i]
+        path = os.path.join(DRYRUN_DIR,
+                            f"torch_dryrun_{arch}_{shape}_{mesh}.json")
+        art = json.load(open(path)) if os.path.exists(path) else {}
+        status = art.get("status", "missing")
+        if shape == "long_500k":
+            family = get_config(arch).family
+            want = (f"long_500k requires sub-quadratic attention ({family} "
+                    f"is full-attention)")
+            check(rc == 0 and status == "skipped" and art["reason"] == want,
+                  f"{arch} {shape} {mesh}: skipped with the reference's "
+                  f"reason ({art.get('reason')!r})")
+            continue
+        if status != "ok":
+            with open(os.path.join(DRYRUN_DIR, f"cell_{i}.log")) as f:
+                print(f.read()[-3000:], flush=True)
+        check(rc == 0 and status == "ok",
+              f"{arch} {shape} {mesh}: {status} (exit {rc}, {wall:.1f} s "
+              f"wall) {art.get('error', '')}")
+        chips = 512 if mp else 256
+        roof = RL.analyze(art, chips)
+        mem = art["memory"]
+        coll = ", ".join(f"{k} {v:.4e} B ({art['collective_counts'][k]})"
+                         for k, v in art["collective_bytes"].items() if v)
+        print(f"    build {art['build_s']} s, run {art['run_s']} s; per "
+              f"device: {art['flops']:.6e} FLOPs, {art['bytes_accessed']:.6e}"
+              f" bytes; collectives {coll or 'none'}; memory: arguments "
+              f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB, temp "
+              f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB, outputs "
+              f"{mem['output_size_in_bytes'] / 1e9:.3f} GB, aliased "
+              f"{mem['alias_size_in_bytes'] / 1e9:.3f} GB", flush=True)
+        print(f"    roofline (H100 SXM: {RL.PEAK_FLOPS / 1e12:.1f} TFLOP/s, "
+              f"{RL.HBM_BW / 1e12:.2f} TB/s, link {RL.LINK_BW / 1e9:.0f} "
+              f"GB/s): compute {roof.compute_s:.6f} s, memory "
+              f"{roof.memory_s:.6f} s (floor {roof.memory_floor_s:.6f} s), "
+              f"collective {roof.collective_s:.6f} s; bound by "
+              f"{roof.bottleneck}; model FLOPs {roof.model_flops:.6e}, useful"
+              f" {roof.useful_ratio:.4f}", flush=True)
+
+
+# Phase 9b: phase 7's own cell (minicpm3-4b, bf16, remat "full", batch
+# TRAIN_BATCH x TRAIN_SEQ) counted by the dry-run on a (1, 1) fake mesh:
+# its FLOPs must equal phase 7's FlopCounterMode count of a real step, and
+# its predicted peak memory (arguments + temp) fall within DRYRUN_MEM_BAND
+# of phase 7's measured peak.
+DRYRUN_MEM_BAND = (0.9, 1.1)
+COUNT_PHASE7 = """
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_mesh
+D.fake_group(1)
+mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+shape = ShapeSpec("phase7", int(sys.argv[2]), int(sys.argv[3]), "train")
+print(json.dumps(D.count_cell(get_config(sys.argv[1]), shape, mesh)))
+"""
+
+
+def phase_dryrun_phase7(smi, train):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import roofline as RL
+    print(f"== phase 9b: phase 7's cell counted on a (1, 1) fake mesh "
+          f"({smi})", flush=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", COUNT_PHASE7, TRAIN_ARCH,
+                          str(TRAIN_SEQ), str(TRAIN_BATCH)], env=env,
+                         capture_output=True, text=True,
+                         timeout=DRYRUN_TIMEOUT_S)
+    if out.returncode != 0:
+        print(out.stderr[-3000:], flush=True)
+    check(out.returncode == 0, f"count_cell of {TRAIN_ARCH} at batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} on a (1, 1) fake mesh "
+          f"({time.perf_counter() - t0:.1f} s)")
+    r = json.loads(out.stdout.splitlines()[-1])
+    check(r["flops"] == train["flops_counted"],
+          f"per-device FLOPs {int(r['flops'])} equal phase 7's "
+          f"FlopCounterMode count of a real step {train['flops_counted']} "
+          f"exactly; {r['flops'] / train['bound_flops']:.4f} of "
+          f"train_step_bound's analytic {train['bound_flops'] / 1e12:.2f} "
+          f"TFLOP")
+    mem = r["memory"]
+    predicted = (mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]) \
+        / 1e9
+    ratio = predicted / train["peak_gb"]
+    check(DRYRUN_MEM_BAND[0] <= ratio <= DRYRUN_MEM_BAND[1],
+          f"predicted peak memory {predicted:.2f} GB (arguments "
+          f"{mem['argument_size_in_bytes'] / 1e9:.2f} + temp "
+          f"{mem['temp_size_in_bytes'] / 1e9:.2f}) against phase 7's "
+          f"measured {train['peak_gb']:.2f} GB: {ratio:.4f} (band "
+          f"{DRYRUN_MEM_BAND})")
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeSpec("phase7", TRAIN_SEQ, TRAIN_BATCH, "train")
+    roof = RL.analyze(dict(r, arch=TRAIN_ARCH, shape="phase7"), 1, cfg=cfg,
+                      shape=shape)
+    bound_s = max(roof.compute_s, roof.memory_floor_s, roof.collective_s)
+    print(f"  roofline of the cell (one H100): compute {roof.compute_s:.6f} "
+          f"s, memory {roof.memory_s:.6f} s (floor {roof.memory_floor_s:.6f}"
+          f" s), bound {bound_s * 1e3:.3f} ms by {roof.bottleneck}; phase "
+          f"7's median step {train['step_ms']:.3f} ms: "
+          f"{bound_s * 1e3 / train['step_ms']:.4f} of it; build "
+          f"{r['build_s']} s, run {r['run_s']} s", flush=True)
+    return {"flops": r["flops"], "predicted_gb": predicted, "ratio": ratio}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA GPU (torch.cuda.is_available() is "
@@ -2638,6 +2834,9 @@ def main():
     finally:
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
+
+    phase_dryrun(smi)
+    phase_dryrun_phase7(smi, train)
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,7 @@
 """Architecture registry: ``get_config("<arch-id>")`` for ``--arch`` flags.
 
-The port's copy of the reference's registry. The renderer's own config
-(``lsgaussian``) is not registered yet: only the dry-run launcher reads
-it, and that launcher is not ported.
+The port's copy of the reference's registry, with the renderer's own
+config (``lsgaussian``) as an extra id.
 """
 from __future__ import annotations
 
@@ -20,7 +19,7 @@ ARCH_IDS = (
     "moonshot-v1-16b-a3b",
 )
 
-EXTRA_IDS = ()
+EXTRA_IDS = ("lsgaussian",)
 
 
 def _module_name(arch_id: str) -> str:

@@ -26,9 +26,12 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.sharding_hooks import constrain, get_flag, on_local
+from repro_torch.models.sharding_hooks import (batch_placements, constrain,
+                                               einsum, get_flag, get_hooks,
+                                               on_local, run_local)
 
 
 class Params(nn.Module):
@@ -75,6 +78,27 @@ def _ones(shape, dtype, gen, device) -> torch.Tensor:
 def wide(x: torch.Tensor) -> torch.Tensor:
     """``x`` in float32, or in its own dtype where that is wider."""
     return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``: rows of the (V, D) table for (B, S) tokens. On a
+    mesh each rank looks its batch rows up in the whole table
+    (``run_local``): the output is split by batch over the batch axes
+    (``batch_placements``), the table's gradient a ``Partial`` sum there.
+    DTensor's own lookup keeps the table's layout (its feature dim over
+    "data"), so every product of the first layer would split its sum,
+    and torch 2.11 cannot propagate the lookup's backward (``index_put``)
+    from batch-split rows."""
+    if not (isinstance(table, DTensor) or isinstance(tokens, DTensor)):
+        return table[tokens]
+    mesh = (table if isinstance(table, DTensor) else tokens).device_mesh
+    rows = batch_placements(mesh, tokens.shape[0])
+    whole = (Replicate(),) * mesh.ndim
+    table_grad = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                       for p in rows)
+    return run_local(lambda t, i: t[i], mesh, (table, tokens), (whole, rows),
+                     rows, tuple(tokens.shape) + (table.shape[1],),
+                     (table_grad, rows))
 
 
 # ---------------------------------------------------------------------------
@@ -134,12 +158,10 @@ def _sdpa(q, k, v, mask):
     """q (B,S,G,Hq,K), k/v (B,G,T,K), mask (B,1,1,S,T)-broadcastable or
     None. Materialized float32 softmax."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
-    scores = torch.einsum("bsghk,bgtk->bghst", q, k) * scale
-    scores = constrain(wide(scores), "attn_scores_gqa")
+    scores = wide(torch.einsum("bsghk,bgtk->bghst", q, k) * scale)
     if mask is not None:
         scores = scores.masked_fill(~mask, -1e30)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    probs = constrain(probs, "attn_scores_gqa")
     return torch.einsum("bghst,bgtk->bsghk", probs, v)
 
 
@@ -153,10 +175,12 @@ FLASH_KV_CHUNK = 1024
 def flash_attention(q, k, v, *, causal: bool, scale: float,
                     q_chunk: int = FLASH_Q_CHUNK,
                     kv_chunk: int = FLASH_KV_CHUNK,
-                    causal_skip: bool = False):
+                    causal_skip: bool = False, q_offset: int = 0):
     """Online-softmax (flash) attention in GQA layout, O(qc*kc) score memory.
 
     q (B,S,G,Hq,K), k (B,G,T,K), v (B,G,T,Kv) -> out (B,S,G,Hq,Kv).
+    ``q_offset`` is the position of q's first row (a rank's block of the
+    query rows).
 
     A chunk count falls back to 1 when the length is not a multiple of
     the chunk (or is shorter). With ``causal_skip`` (and only when
@@ -179,7 +203,7 @@ def flash_attention(q, k, v, *, causal: bool, scale: float,
     outs = []
     for iq in range(nq):
         qi = q[:, iq * qc:(iq + 1) * qc]                    # (B,qc,G,Hq,K)
-        q_pos = iq * qc + torch.arange(qc, device=dev)
+        q_pos = q_offset + iq * qc + torch.arange(qc, device=dev)
         acc = torch.zeros((b, g, hq, qc, dv), dtype=acc_dtype, device=dev)
         m = torch.full((b, g, hq, qc), -torch.inf, dtype=acc_dtype,
                        device=dev)
@@ -203,6 +227,104 @@ def flash_attention(q, k, v, *, causal: bool, scale: float,
         out = (acc / torch.clamp_min(l[..., None], 1e-30)).to(q.dtype)
         outs.append(out.movedim(3, 1))                     # (B,qc,G,Hq,Kv)
     return torch.cat(outs, dim=1)
+
+
+def _on_ranks(core, tensors, dims, hook: str, groups: int, **kw):
+    """``core(*tensors, q_offset=0, head_offset=0, **kw)``, the attention
+    between the projections, which gives (B, S, H, Kv) with H the first
+    tensor's heads and Kv the last tensor's last dim. ``dims`` gives each
+    tensor's (head dim, query-row dim), None where it has none; dim 0 is
+    the batch of every tensor; ``groups`` is the number of kv groups.
+
+    On DTensors each rank runs ``core`` on its shards (``run_local``),
+    so DTensor never sees the core's reshapes: the batch is split as the
+    largest tensor splits it, else as ``batch_placements`` does; on the
+    "model" axis the ranks split the query rows where the hook ``hook``
+    is set (the reference's sequence-sharded scores) and the rows
+    divide, else the heads: by kv group where ``groups`` divide, or where
+    each rank's query heads lie in one group (the rank then takes its
+    group from the whole keys), else each rank computes them all.
+    ``q_offset`` and ``head_offset`` are the global index of the rank's
+    first query row and head. A tensor that is replicated on an axis
+    that splits the work takes its gradient there as a ``Partial``
+    sum."""
+    if not any(isinstance(t, DTensor) for t in tensors):
+        return core(*tensors, q_offset=0, head_offset=0, **kw)
+    lead = next(t for t in tensors if isinstance(t, DTensor))
+    mesh = lead.device_mesh
+    q = tensors[0]
+    batch, rows, heads = q.shape[:3]
+    placements = [[] for _ in tensors]
+    grads = [[] for _ in tensors]
+    out, offsets = [], {"q_offset": 0, "head_offset": 0}
+    # The batch split of the largest tensor (a decode step's cache) where
+    # it has one, so that only the small ones move.
+    big = max(tensors, key=lambda t: t.numel())
+    rows_split = batch_placements(mesh, batch)
+    if isinstance(big, DTensor) and any(
+            isinstance(p, Shard) and p.dim == 0 for p in big.placements):
+        rows_split = tuple(p if isinstance(p, Shard) and p.dim == 0
+                           else Replicate() for p in big.placements)
+    for axis, name in enumerate(mesh.mesh_dim_names):
+        size = mesh.size(axis)
+        split = name == "model" and size > 1
+        if isinstance(rows_split[axis], Shard):
+            pick, out_dim = (lambda d: 0), 0
+        elif split and rows > 1 and rows % size == 0 and \
+                get_hooks().get(hook) is not None:
+            pick, out_dim = (lambda d: d[1]), 1
+            offsets["q_offset"] = mesh.get_local_rank(axis) * (rows // size)
+        elif split and groups % size == 0:
+            pick, out_dim = (lambda d: d[0]), 2
+            offsets["head_offset"] = mesh.get_local_rank(axis) * (
+                heads // size)
+        elif split and heads % size == 0 and \
+                (heads // groups) % (heads // size) == 0:
+            pick, out_dim = (lambda d: d[0] if d[1] is not None else None), 2
+            offsets["head_offset"] = mesh.get_local_rank(axis) * (
+                heads // size)
+        else:
+            pick, out_dim = (lambda d: None), None
+        for i, d in enumerate(dims):
+            dim = pick(d)
+            placements[i].append(Replicate() if dim is None else Shard(dim))
+            grads[i].append(Shard(dim) if dim is not None else Replicate()
+                            if out_dim is None else Partial())
+        out.append(Replicate() if out_dim is None else Shard(out_dim))
+    shape = tuple(q.shape[:3]) + (tensors[-1].shape[-1],)
+    return run_local(functools.partial(core, **offsets, **kw), mesh,
+                     tensors, placements, out, shape, grads)
+
+
+def _gqa_core(q, k, v, *, q_offset: int, head_offset: int, hq: int,
+              causal: bool, cache_index: Optional[int], flash: bool,
+              causal_skip: bool):
+    """GQA attention on plain tensors: q (B,S,H,K) whose first row is at
+    ``q_offset`` and first head at ``head_offset``, ``hq`` query heads a
+    kv group, k/v (B,G,T,K) -> (B,S,H,K). Where q holds part of one
+    group's heads, that group is taken from k and v. With
+    ``cache_index`` (decode) it attends over positions <= cache_index."""
+    b, s, h, hd = q.shape
+    if h < hq:
+        g0 = head_offset // hq
+        k, v = k[:, g0:g0 + 1], v[:, g0:g0 + 1]
+    g, t = k.shape[1], k.shape[2]
+    q = q.reshape(b, s, g, h // g, hd)
+    if cache_index is not None:
+        tpos = torch.arange(t, device=q.device)[None, None, None, None, :]
+        out = _sdpa(q, k, v, tpos <= cache_index)
+    elif flash:
+        out = flash_attention(q, k, v, causal=causal,
+                              scale=1.0 / (hd ** 0.5),
+                              causal_skip=causal_skip, q_offset=q_offset)
+    else:
+        mask = None
+        if causal:
+            qpos = q_offset + torch.arange(s, device=q.device)
+            tpos = torch.arange(t, device=q.device)
+            mask = (tpos[None, :] <= qpos[:, None])[None, None, None]
+        out = _sdpa(q, k, v, mask)
+    return out.reshape(b, s, h, -1)
 
 
 def _write_cache(buf: torch.Tensor, new: torch.Tensor, cache_index: int,
@@ -244,46 +366,32 @@ def gqa_attention(params, x: torch.Tensor, positions: torch.Tensor,
         raise NotImplementedError(
             "cross-attention (kv_x / static_kv) is reached by no registered "
             "config and is not ported (ROADMAP Queue 1)")
-    b, s, _ = x.shape
-    h, g = cfg.num_heads, cfg.num_kv_heads
-    hd = cfg.resolved_head_dim
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dgk->bsgk", x, params["wk"])
-    v = torch.einsum("bsd,dgk->bsgk", x, params["wv"])
+    s = x.shape[1]
+    q = einsum("bsd,dhk->bshk", x, params["wq"])
+    k = einsum("bsd,dgk->bsgk", x, params["wk"])
+    v = einsum("bsd,dgk->bsgk", x, params["wv"])
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     k = k.transpose(1, 2)                                  # (B, G, S, K)
     v = v.transpose(1, 2)
-    q = q.reshape(b, s, g, h // g, hd)
 
     if cache is not None:
-        t = cache.k.shape[2]
         _write_cache(cache.k, k, cache_index, 2)
         _write_cache(cache.v, v, cache_index, 2)
-        # valid positions: <= current index
-        tpos = torch.arange(t, device=x.device)[None, None, None, None, :]
-        out = _sdpa(q, cache.k, cache.v, tpos <= cache_index)
-        new_cache = cache
+        k, v, new_cache = cache.k, cache.v, cache
+        use_flash = False
     else:
-        t = s
         impl = get_flag("attn_impl", "auto")
-        use_flash = impl == "flash" or (
-            impl == "auto" and s >= FLASH_THRESHOLD and t >= FLASH_THRESHOLD)
-        if use_flash:
-            out = flash_attention(q, k, v, causal=causal,
-                                  scale=1.0 / (hd ** 0.5),
-                                  causal_skip=bool(get_flag("causal_skip",
-                                                            False)))
-        else:
-            mask = None
-            if causal:
-                ar = torch.arange(s, device=x.device)
-                mask = (ar[None, :] <= ar[:, None])[None, None, None]
-            out = _sdpa(q, k, v, mask)
+        use_flash = impl == "flash" or (impl == "auto"
+                                        and s >= FLASH_THRESHOLD)
         new_cache = KVCache(k, v) if return_cache else None
-
-    out = out.reshape(b, s, h, hd)
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    out = _on_ranks(_gqa_core, (q, k, v), ((2, 1), (1, None), (1, None)),
+                    "attn_scores_gqa", cfg.num_kv_heads,
+                    hq=cfg.num_heads // cfg.num_kv_heads, causal=causal,
+                    cache_index=cache_index if cache is not None else None,
+                    flash=use_flash,
+                    causal_skip=bool(get_flag("causal_skip", False)))
+    y = einsum("bshk,hkd->bsd", out, params["wo"])
     return (y, new_cache) if (return_cache or cache is not None) else (y, None)
 
 
@@ -313,25 +421,53 @@ def init_mla(gen, cfg: ArchConfig, dtype, device=None) -> Params:
                  device=device))
 
 
+def _mla_core(q_nope, q_rope, k_nope, kr, v, *, q_offset: int,
+              head_offset: int, scale: float, flash: bool,
+              causal_skip: bool):
+    """Causal MLA attention on plain tensors: q_nope (B,S,H,N), q_rope
+    (B,S,H,R) whose first row is at ``q_offset``, k_nope (B,T,H,N), the
+    shared rotary key kr (B,T,R), v (B,T,H,V) -> (B,S,H,V). Every head
+    has its own key, so ``head_offset`` is not needed."""
+    b, s, h, nd = q_nope.shape
+    t, rd = k_nope.shape[1], kr.shape[-1]
+    if flash:
+        # concat nope+rope dims; per-head keys -> GQA layout g=h, hq=1
+        q_cat = torch.cat([q_nope, q_rope], -1)             # (B,S,H,nd+rd)
+        k_cat = torch.cat(
+            [k_nope, kr[:, :, None, :].expand(b, t, h, rd)], -1)
+        out = flash_attention(
+            q_cat.reshape(b, s, h, 1, nd + rd),
+            k_cat.transpose(1, 2), v.transpose(1, 2),
+            causal=True, scale=scale, causal_skip=causal_skip,
+            q_offset=q_offset)
+        return out.reshape(b, s, h, -1)
+    scores = (torch.einsum("bshn,bthn->bhst", q_nope, k_nope)
+              + torch.einsum("bshr,btr->bhst", q_rope, kr)) * scale
+    scores = wide(scores)
+    qpos = q_offset + torch.arange(s, device=q_nope.device)
+    mask = torch.arange(t, device=q_nope.device)[None, :] <= qpos[:, None]
+    scores = scores.masked_fill(~mask[None, None], -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhst,bthv->bshv", probs, v)
+
+
 def mla_attention(params, x: torch.Tensor, positions: torch.Tensor,
                   cfg: ArchConfig, *, cache: Optional[MLACache] = None,
                   cache_index: Optional[int] = None,
                   return_cache: bool = False):
-    b, s, _ = x.shape
-    h = cfg.num_heads
+    s = x.shape[1]
     nd, rd = cfg.nope_head_dim, cfg.rope_head_dim
     scale = 1.0 / ((nd + rd) ** 0.5)
 
     cq = rmsnorm(params["q_norm"],
-                 torch.einsum("bsd,dc->bsc", x, params["w_dq"]), cfg.norm_eps)
-    q = torch.einsum("bsc,chk->bshk", cq, params["w_uq"])
+                 einsum("bsd,dc->bsc", x, params["w_dq"]), cfg.norm_eps)
+    q = einsum("bsc,chk->bshk", cq, params["w_uq"])
     q_nope, q_rope = q[..., :nd], q[..., nd:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
     ckv = rmsnorm(params["kv_norm"],
-                  torch.einsum("bsd,dc->bsc", x, params["w_dkv"]),
-                  cfg.norm_eps)
-    kr_new = torch.einsum("bsd,dr->bsr", x, params["w_kr"])[:, :, None, :]
+                  einsum("bsd,dc->bsc", x, params["w_dkv"]), cfg.norm_eps)
+    kr_new = einsum("bsd,dr->bsr", x, params["w_kr"])[:, :, None, :]
     kr_new = apply_rope(kr_new, positions, cfg.rope_theta)[:, :, 0, :]
 
     if cache is not None:
@@ -341,47 +477,29 @@ def mla_attention(params, x: torch.Tensor, positions: torch.Tensor,
         c_all, r_all = cache.c_kv, cache.k_rope
         # Absorbed decode: score directly in the latent space, with no
         # per-step K/V re-expansion.
-        q_lat = torch.einsum("bshn,chn->bshc", q_nope, params["w_uk"])
-        scores = (torch.einsum("bshc,btc->bhst", q_lat, c_all)
-                  + torch.einsum("bshr,btr->bhst", q_rope, r_all)) * scale
+        q_lat = einsum("bshn,chn->bshc", q_nope, params["w_uk"])
+        scores = (einsum("bshc,btc->bhst", q_lat, c_all)
+                  + einsum("bshr,btr->bhst", q_rope, r_all)) * scale
         tpos = torch.arange(t, device=x.device)[None, None, None, :]
         scores = wide(scores).masked_fill(~(tpos <= cache_index), -1e30)
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        out_lat = torch.einsum("bhst,btc->bshc", probs, c_all)
-        out = torch.einsum("bshc,chv->bshv", out_lat, params["w_uv"])
+        out_lat = einsum("bhst,btc->bshc", probs, c_all)
+        out = einsum("bshc,chv->bshv", out_lat, params["w_uv"])
         new_cache = cache
     else:
-        k_nope = torch.einsum("btc,chn->bthn", ckv, params["w_uk"])
-        v = torch.einsum("btc,chv->bthv", ckv, params["w_uv"])
+        k_nope = einsum("btc,chn->bthn", ckv, params["w_uk"])
+        v = einsum("btc,chv->bthv", ckv, params["w_uv"])
         impl = get_flag("attn_impl", "auto")
         use_flash = impl == "flash" or (impl == "auto"
                                         and s >= FLASH_THRESHOLD)
-        if use_flash:
-            # concat nope+rope dims; per-head keys -> GQA layout g=h, hq=1
-            q_cat = torch.cat([q_nope, q_rope], -1)         # (B,S,H,nd+rd)
-            k_cat = torch.cat(
-                [k_nope, kr_new[:, :, None, :].expand(*k_nope.shape[:3], rd)],
-                -1)
-            out = flash_attention(
-                q_cat.reshape(b, s, h, 1, nd + rd),
-                k_cat.transpose(1, 2), v.transpose(1, 2),
-                causal=True, scale=scale,
-                causal_skip=bool(get_flag("causal_skip", False)))
-            out = out.reshape(b, s, h, -1)
-        else:
-            scores = (torch.einsum("bshn,bthn->bhst", q_nope, k_nope)
-                      + torch.einsum("bshr,btr->bhst", q_rope, kr_new)) \
-                * scale
-            scores = constrain(wide(scores), "attn_scores_mla")
-            ar = torch.arange(s, device=x.device)
-            mask = ar[None, :] <= ar[:, None]
-            scores = scores.masked_fill(~mask[None, None], -1e30)
-            probs = constrain(torch.softmax(scores, dim=-1),
-                              "attn_scores_mla").to(x.dtype)
-            out = torch.einsum("bhst,bthv->bshv", probs, v)
+        out = _on_ranks(
+            _mla_core, (q_nope, q_rope, k_nope, kr_new, v),
+            ((2, 1), (2, 1), (2, None), (None, None), (2, None)),
+            "attn_scores_mla", cfg.num_heads, scale=scale, flash=use_flash,
+            causal_skip=bool(get_flag("causal_skip", False)))
         new_cache = MLACache(ckv, kr_new) if return_cache else None
 
-    y = torch.einsum("bshv,hvd->bsd", out, params["wo"])
+    y = einsum("bshv,hvd->bsd", out, params["wo"])
     return y, new_cache
 
 
@@ -399,14 +517,14 @@ def init_mlp(gen, d: int, f: int, mlp_type: str, dtype,
 
 
 def mlp(params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
-    h = torch.einsum("bsd,df->bsf", x, params["w_in"])
+    h = einsum("bsd,df->bsf", x, params["w_in"])
     if mlp_type == "swiglu":
-        g = torch.einsum("bsd,df->bsf", x, params["w_gate"])
+        g = einsum("bsd,df->bsf", x, params["w_gate"])
         h = F.silu(g) * h
     else:
         # jax.nn.gelu defaults to the tanh approximation.
         h = F.gelu(h, approximate="tanh")
-    return torch.einsum("bsf,fd->bsd", h, params["w_out"])
+    return einsum("bsf,fd->bsd", h, params["w_out"])
 
 
 def init_moe(gen, cfg: ArchConfig, dtype, device=None) -> Params:
@@ -441,7 +559,7 @@ def moe_block(params, x: torch.Tensor, cfg: ArchConfig
     _, s, _ = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
 
-    logits = torch.einsum("bsd,de->bse", wide(x), params["router"])
+    logits = einsum("bsd,de->bse", wide(x), params["router"])
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.topk(probs, k, dim=-1)   # (B, S, k)
     gate_vals = gate_vals / torch.clamp_min(
@@ -493,10 +611,10 @@ def _moe_decode_dispatch(params, x, gate_vals, expert_idx, cfg):
                           capacity=capacity),
         x, gate_vals, expert_idx, rows=False)
     hbuf = constrain(hbuf, "moe_buf_decode")
-    hin = torch.einsum("ecd,edf->ecf", hbuf, params["w_in"])
-    hg = torch.einsum("ecd,edf->ecf", hbuf, params["w_gate"])
-    act = (F.silu(hg) * hin).contiguous()      # see _moe_dispatch_per_row
-    hout = torch.einsum("ecf,efd->ecd", act, params["w_out"])
+    hin = einsum("ecd,edf->ecf", hbuf, params["w_in"])
+    hg = einsum("ecd,edf->ecf", hbuf, params["w_gate"])
+    act = F.silu(hg) * hin
+    hout = einsum("ecf,efd->ecd", act, params["w_out"])
     hout = constrain(hout, "moe_buf_decode")
     y = on_local(functools.partial(_decode_combine, t=b * s),
                  hout, slot, weight, tok, rows=False)
@@ -558,13 +676,10 @@ def _moe_dispatch_per_row(params, x, gate_vals, expert_idx, cfg):
         functools.partial(_row_dispatch, e=cfg.num_experts,
                           capacity=capacity), x, gate_vals, expert_idx)
     hbuf = constrain(hbuf, "moe_buf")
-    hin = torch.einsum("becd,edf->becf", hbuf, params["w_in"])
-    hg = torch.einsum("becd,edf->becf", hbuf, params["w_gate"])
-    # contiguous(): on a mesh, DTensor gives the product the permuted
-    # global strides of the einsums' outputs, which its local shards do
-    # not have, and the next einsum's view of it then fails.
-    act = (F.silu(hg) * hin).contiguous()
-    hout = torch.einsum("becf,efd->becd", act, params["w_out"])
+    hin = einsum("becd,edf->becf", hbuf, params["w_in"])
+    hg = einsum("becd,edf->becf", hbuf, params["w_gate"])
+    act = F.silu(hg) * hin
+    hout = einsum("becf,efd->becd", act, params["w_out"])
     hout = constrain(hout, "moe_buf")
     return on_local(functools.partial(_row_combine, s=s),
                     hout, slot, weight, tok)

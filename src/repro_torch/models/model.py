@@ -31,7 +31,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.models.sharding_hooks import constrain
+from repro_torch.models.sharding_hooks import constrain, einsum
 
 FAMILIES = ("dense", "moe")
 
@@ -216,7 +216,7 @@ def _run_layers(params, x, positions, cfg: ArchConfig, *,
 def _logits(params, x, cfg: ArchConfig):
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return torch.einsum("bsd,dv->bsv", x, head)
+    return einsum("bsd,dv->bsv", x, head)
 
 
 def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
@@ -228,7 +228,7 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     _check_family(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = params["embed"][tokens].to(_dtype(cfg))
+    x = L.embed(params["embed"], tokens).to(_dtype(cfg))
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     x, kv, aux = _run_layers(params, x, positions, cfg,
                              build_cache=build_cache)
@@ -254,7 +254,7 @@ def decode_step(params, tokens: torch.Tensor, cache: DecodeCache,
     """
     _check_family(cfg)
     b = tokens.shape[0]
-    x = params["embed"][tokens].to(_dtype(cfg))
+    x = L.embed(params["embed"], tokens).to(_dtype(cfg))
     idx = cache.index
     positions = torch.full((b, 1), idx, dtype=torch.int64, device=x.device)
     kv = cache.kv

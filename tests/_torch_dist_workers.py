@@ -9,7 +9,8 @@ under xdist), runs ``worker(rank, world, payload)`` in every rank and
 returns what rank 0 returned; ``Spawned`` does the same without waiting,
 so the caller can run the reference meanwhile. A worker's exception
 fails the call with its traceback; collectives time out after
-``PG_TIMEOUT_S``.
+``PG_TIMEOUT_S``. With ``gloo=False`` no group is started: the dry-run's
+workers make their own fake one (``launch/dryrun.fake_group``).
 """
 from __future__ import annotations
 
@@ -27,11 +28,13 @@ import torch.multiprocessing as mp
 PG_TIMEOUT_S = 120
 
 
-def _entry(rank, name, world, store_path, payload_path, out_dir):
+def _entry(rank, name, world, store_path, payload_path, out_dir, gloo):
     torch.set_num_threads(1)
-    dist.init_process_group(
-        "gloo", store=dist.FileStore(store_path, world), rank=rank,
-        world_size=world, timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    if gloo:
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(store_path, world), rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
     try:
         with open(payload_path, "rb") as f:
             payload = pickle.load(f)
@@ -39,9 +42,11 @@ def _entry(rank, name, world, store_path, payload_path, out_dir):
         if rank == 0:
             with open(os.path.join(out_dir, "out.pkl"), "wb") as f:
                 pickle.dump(out, f)
-        dist.barrier()
+        if gloo:
+            dist.barrier()
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 class Spawned:
@@ -49,7 +54,7 @@ class Spawned:
     ``result()`` waits for them and returns rank 0's result."""
 
     def __init__(self, worker, world: int, tmp_path, payload,
-                 timeout: float = 300.0):
+                 timeout: float = 300.0, gloo: bool = True):
         self.name, self.tmp = worker.__name__, str(tmp_path)
         payload_path = os.path.join(self.tmp, "payload.pkl")
         with open(payload_path, "wb") as f:
@@ -57,7 +62,7 @@ class Spawned:
         self.deadline = time.monotonic() + timeout
         self.ctx = mp.start_processes(
             _entry, args=(self.name, world, os.path.join(self.tmp, "store"),
-                          payload_path, self.tmp),
+                          payload_path, self.tmp, gloo),
             nprocs=world, join=False, start_method="spawn")
 
     def result(self):
@@ -70,10 +75,11 @@ class Spawned:
             return pickle.load(f)
 
 
-def spawn(worker, world: int, tmp_path, payload, timeout: float = 300.0):
+def spawn(worker, world: int, tmp_path, payload, timeout: float = 300.0,
+          gloo: bool = True):
     """``worker(rank, world, payload)`` on ``world`` gloo ranks; rank 0's
     result."""
-    return Spawned(worker, world, tmp_path, payload, timeout).result()
+    return Spawned(worker, world, tmp_path, payload, timeout, gloo).result()
 
 
 # ---------------------------------------------------------------------------
@@ -108,32 +114,6 @@ def _batch(case, mesh):
     return S.distribute(batch, S.batch_shardings(batch, mesh))
 
 
-def dryrun_hooks(cfg, seq_len: int, mesh):
-    """The activation hooks the reference's dry-run sets for a train
-    cell (``launch/dryrun.py`` ``make_hooks``), as port Shardings."""
-    from repro_torch.distributed import sharding as S
-    sizes = S.axis_sizes(mesh)
-    baxes = S.batch_axes(mesh)
-    model = sizes["model"]
-
-    def sh(*spec):
-        return S.Sharding(mesh, S.to_placements(S.P(*spec), mesh))
-
-    h = {}
-    if seq_len % model == 0:
-        if cfg.family == "moe" and cfg.d_model % model == 0:
-            h["residual"] = sh(baxes, None, "model")
-        else:
-            h["residual"] = sh(baxes, "model", None)
-        h["attn_scores_gqa"] = sh(baxes, None, None, "model", None)
-        h["attn_scores_mla"] = sh(baxes, None, "model", None)
-    h["attn_impl"] = "sdpa"
-    if cfg.family == "moe" and cfg.num_experts % model == 0:
-        h["moe_buf"] = sh(baxes, "model", None, None)
-        h["moe_buf_decode"] = sh("model", None, None)
-    return h
-
-
 def _loss(cfg, mesh, state, batch):
     from repro_torch.train import train_step as TT
     with TT.on_mesh(mesh), torch.no_grad():
@@ -158,7 +138,9 @@ def train_worker(rank, world, payload):
     """For each case (a reduced config, the reference's state and batch):
     the placed state's placements, hooks, remat modes, the MoE forward
     and one sharded train step, on a (2, 2) mesh."""
+    from repro_torch.configs.base import ShapeSpec
     from repro_torch.distributed import sharding as S
+    from repro_torch.launch.dryrun import make_hooks
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import model as TM
     from repro_torch.models import sharding_hooks as hooks
@@ -179,8 +161,9 @@ def train_worker(rank, world, payload):
             .placements and state.opt.mu[k].placements == want.params[k]
             .placements for k, p in state.params.named_parameters())
 
-        hooks.set_hooks(dryrun_hooks(cfg, case["batch"]["tokens"].shape[1],
-                                     mesh))
+        b, seq = case["batch"]["tokens"].shape
+        hooks.set_hooks(make_hooks(cfg, ShapeSpec("train", seq, b, "train"),
+                                   mesh))
         try:
             res["hook_names"] = sorted(hooks.get_hooks())
             res["hooked_loss"] = _loss(cfg, mesh, state, batch)
@@ -349,3 +332,122 @@ def comm_worker(rank, world, payload):
         seq = layer((w[i], b[i]), seq)
     return {"steps": steps, "tree": tree, "pipes": pipes,
             "sequential": seq.numpy()}
+
+
+# ---------------------------------------------------------------------------
+# dry-run workers (no gloo group: each makes its own fake one)
+# ---------------------------------------------------------------------------
+
+def _cell_summary(r):
+    keep = ("status", "reason", "error", "flops", "bytes_accessed",
+            "collective_bytes", "collective_counts", "memory", "run_s",
+            "flops_corrected", "bytes_corrected",
+            "collective_bytes_corrected")
+    return {k: r[k] for k in keep if k in r}
+
+
+def _hook_specs(hooks_dict, mesh):
+    """{name: spec (entries per dim) or flag} of a hooks table."""
+    from repro_torch.distributed import sharding as S
+    out = {}
+    for k, v in hooks_dict.items():
+        if isinstance(v, S.Sharding):
+            ndim = {"residual": 3, "attn_scores_gqa": 5, "attn_scores_mla": 4,
+                    "moe_buf": 4, "moe_buf_decode": 3}[k]
+            out[k] = tuple(S.to_spec(v.placements, mesh, ndim))
+        else:
+            out[k] = v
+    return out
+
+
+def dryrun_worker(rank, world, payload):
+    """The port's dry-run on fake groups: the reduced configs' cells
+    (``payload["archs"]`` x ``["shapes"]``) on ``["multi_pod"]``'s
+    production mesh and their ``["corrected"]`` cells; with
+    ``["full"]`` (archs) also those full configs' hooks and input specs
+    on both meshes, the statuses of ``["status"]``'s cells, per-device
+    FLOPs of ``["one_device"]``'s small cells on a (1, 1) mesh and a
+    hand-built program's collectives."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES, ShapeSpec
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import roofline as R
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+
+    out = {"cells": {}, "corrected": {}}
+    mp = payload.get("multi_pod", False)
+    for arch in payload.get("archs", ()):
+        cfg = get_config(arch).reduced()
+        for shape in payload.get("shapes", ()):
+            r = D.run_cell(arch, shape, multi_pod=mp, save=False,
+                           cfg_override=cfg, device_type="cpu")
+            out["cells"][arch, shape] = _cell_summary(r)
+    for arch, shape, layers in payload.get("corrected", ()):
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  num_layers=layers)
+        r = R.corrected_cell(arch, shape, multi_pod=mp, cfg_override=cfg,
+                             device_type="cpu", save=False)
+        out["corrected"][arch, shape] = _cell_summary(r)
+    if not payload.get("full"):
+        return out
+
+    out["hooks"], out["inputs"] = {}, {}
+    for multi_pod in (False, True):
+        D.fake_group(512 if multi_pod else 256)
+        mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+        for arch in payload["full"]:
+            cfg = get_config(arch)
+            for s in SHAPES:
+                out["hooks"][arch, s.name, multi_pod] = _hook_specs(
+                    D.make_hooks(cfg, s, mesh), mesh)
+                out["inputs"][arch, s.name] = {
+                    k: (tuple(v.shape), str(v.dtype))
+                    for k, v in D.input_specs(cfg, s).items()}
+                out["inputs"][arch, s.name, "decode"] = {
+                    k: (tuple(v.shape), str(v.dtype)) for k, v in
+                    D.input_specs(cfg, s, for_decode=True).items()}
+    out["status"] = {
+        (arch, shape): D.run_cell(arch, shape, multi_pod=False, save=False,
+                                  device_type="cpu")
+        for arch, shape in payload["status"]}
+    out["status"] = {k: {"status": v["status"], "reason": v["reason"]}
+                     for k, v in out["status"].items()}
+
+    D.fake_group(1)
+    mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+    out["one_device"] = {}
+    for arch, (name, seq, batch, kind) in payload["one_device"]:
+        shape = ShapeSpec(name, seq, batch, kind)
+        out["one_device"][arch, kind] = D.count_cell(
+            get_config(arch).reduced(), shape, mesh)["flops"]
+
+    D.fake_group(256)
+    out["program"] = _collective_program(make_production_mesh(
+        device_type="cpu"))
+    return out
+
+
+def _collective_program(mesh):
+    """Rank 0's collective bytes and counts of a DTensor program on a
+    16 x 16 mesh whose collectives are known: an all-gather over "data"
+    of (256, 64) float32 rows, an all-reduce of a (8, 8) partial sum
+    over "data", and a reduce-scatter over "model" of a (32, 8) partial
+    sum into rows."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                          Shard)
+    from repro_torch.launch.dryrun import LocalCost
+    fake = FakeTensorMode()
+    with fake:
+        x = DTensor.from_local(torch.zeros(16, 64), mesh,
+                               (Shard(0), Replicate()), run_check=False)
+        y = DTensor.from_local(torch.zeros(8, 8), mesh,
+                               (Partial(), Replicate()), run_check=False)
+        z = DTensor.from_local(torch.zeros(32, 8), mesh,
+                               (Replicate(), Partial()), run_check=False)
+        cost = LocalCost(fake)
+        with cost:
+            x.redistribute(mesh, (Replicate(), Replicate()))
+            y.redistribute(mesh, (Replicate(), Replicate()))
+            z.redistribute(mesh, (Replicate(), Shard(0)))
+    return dict(cost.collective_bytes), dict(cost.collective_counts)

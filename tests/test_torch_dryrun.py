@@ -1,0 +1,177 @@
+"""Port parity: the dry-run (``launch/dryrun.py``) against the reference's.
+
+The port's side runs in two spawned processes on fake process groups
+(``_torch_dist_workers.dryrun_worker``: each makes its own fake groups
+of 256, 512 and 1 ranks and imports the port only); the reference's
+side in a third (``_torch_dryrun_reference.py``, whose 512-device XLA
+flag must precede JAX's start). All three start before the tests run
+and work in parallel.
+
+Held here:
+  - ``make_hooks`` and ``input_specs`` equal the reference's, as specs,
+    shapes and dtypes, for every arch x shape on both production meshes;
+  - every reduced config's train, prefill and decode cell runs on the
+    fake 16 x 16 mesh (the train cell raised in the projections'
+    einsum before the DTensor flatten fault was repaired), and its
+    ``decode_32k`` argument bytes per device equal the reference's
+    compiled module's;
+  - ``long_500k`` is skipped with the reference's reason, and
+    ``lsgaussian`` is an error in both;
+  - on a (1, 1) mesh the per-device FLOPs equal ``FlopCounterMode``'s
+    count of the same step run unsharded on real tensors, exactly;
+  - a hand-built DTensor program's collectives are counted exactly.
+"""
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+import _torch_dist_workers as W
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.models import model as TM
+from repro_torch.train import optimizer as TO
+from repro_torch.train import train_step as TT
+
+CELLS = ("train_4k", "prefill_32k", "decode_32k")
+# (name, seq, batch, kind) of the (1, 1) cells held against FlopCounterMode
+ONE_DEVICE = ("one", 32, 4, None)
+STATUS = [(a, "long_500k") for a in ARCH_IDS] + [("lsgaussian", "train_4k"),
+                                                 ("lsgaussian", "long_500k")]
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    one = [(a, ONE_DEVICE[:3] + (kind,)) for a in ARCH_IDS
+           for kind in ("train", "prefill", "decode")]
+    jobs = [W.Spawned(W.dryrun_worker, 1, tmp_path_factory.mktemp(name),
+                      payload, gloo=False)
+            for name, payload in (
+                ("cells", {"archs": ARCH_IDS, "shapes": CELLS}),
+                ("rest", {"full": ARCH_IDS, "status": STATUS,
+                          "one_device": one}))]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(HERE, "..", "src"), os.environ.get("PYTHONPATH", "")]))
+    ref = subprocess.run([sys.executable,
+                          os.path.join(HERE, "_torch_dryrun_reference.py")],
+                         env=env, capture_output=True, text=True, timeout=300,
+                         check=True)
+    cells, rest = (job.result() for job in jobs)
+    return dict(rest, cells=cells["cells"]), \
+        json.loads(ref.stdout.splitlines()[-1])
+
+
+def _norm(spec):
+    """A spec as JSON gives it back: tuples as lists."""
+    return json.loads(json.dumps(spec))
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_hooks_equal_the_reference(runs, multi_pod):
+    got, ref = runs
+    n = 0
+    for arch in ARCH_IDS:
+        for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+            want = ref["hooks"][f"{arch}|{shape}|{multi_pod}"]
+            assert _norm(got["hooks"][arch, shape, multi_pod]) == want, \
+                (arch, shape)
+            n += len(want)
+    print("hooks compared", n)
+
+
+def test_input_specs_equal_the_reference(runs):
+    got, ref = runs
+    for arch in ARCH_IDS:
+        for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+            for decode in (False, True):
+                key = (arch, shape) + (("decode",) if decode else ())
+                port = {k: [list(s), d.replace("torch.", "")]
+                        for k, (s, d) in got["inputs"][key].items()}
+                assert port == ref["inputs"][f"{arch}|{shape}|{decode}"]
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_reduced_cells_run_on_16x16(runs, arch):
+    got, _ = runs
+    for shape in CELLS:
+        r = got["cells"][arch, shape]
+        print(arch, shape, r["status"], r.get("run_s"), r.get("flops"),
+              r.get("collective_counts"))
+        assert r["status"] == "ok", r.get("error")
+        assert r["flops"] > 0 and r["bytes_accessed"] > 0
+        mem = r["memory"]
+        assert mem["argument_size_in_bytes"] > 0
+        assert mem["temp_size_in_bytes"] > 0
+    # the train step updates the state in place, decode the cache
+    train = got["cells"][arch, "train_4k"]["memory"]
+    assert 0 < train["alias_size_in_bytes"] < train["argument_size_in_bytes"]
+    assert got["cells"][arch, "prefill_32k"]["memory"][
+        "alias_size_in_bytes"] == 0
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_decode_argument_bytes_equal_the_reference(runs, arch):
+    got, ref = runs
+    status, want = ref["decode_args"][arch]
+    port = got["cells"][arch, "decode_32k"]["memory"]["argument_size_in_bytes"]
+    print(arch, "argument bytes per device", port, want)
+    assert status == "ok"
+    assert port == want
+
+
+def test_statuses_equal_the_reference(runs):
+    got, ref = runs
+    for arch, shape in STATUS:
+        r = got["status"][arch, shape]
+        want_status, want_reason = ref["status"][f"{arch}|{shape}"]
+        assert r["status"] == want_status, (arch, shape)
+        if want_status == "skipped":
+            assert r["reason"] == want_reason
+    assert got["status"]["lsgaussian", "train_4k"]["status"] == "error"
+
+
+def _unsharded_flops(arch, kind):
+    """FlopCounterMode's count of the ONE_DEVICE cell run on one device
+    with real tensors."""
+    cfg = get_config(arch).reduced()
+    _, seq, b, _ = ONE_DEVICE
+    tokens = torch.zeros((b, seq), dtype=torch.int32)
+    if kind == "train":
+        state = TT.init_train_state(cfg, device="cpu")
+        step = TT.make_train_step(cfg, TO.OptimizerConfig())
+        with FlopCounterMode(display=False) as fc:
+            step(state, {"tokens": tokens, "labels": tokens})
+        return fc.get_total_flops()
+    params = TM.init_params(cfg, device="cpu")
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        if kind == "prefill":
+            TM.forward(params, {"tokens": tokens}, cfg, build_cache=True)
+        else:
+            cache = TM.init_cache(cfg, b, seq, device="cpu")
+            TM.decode_step(params, tokens[:, :1], cache, cfg)
+    return fc.get_total_flops()
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_one_device_flops_equal_flop_counter(runs, arch):
+    got, _ = runs
+    for kind in ("train", "prefill", "decode"):
+        want = _unsharded_flops(arch, kind)
+        print(arch, kind, got["one_device"][arch, kind], want)
+        assert got["one_device"][arch, kind] == want, (arch, kind)
+
+
+def test_collectives_of_a_known_program(runs):
+    got, _ = runs
+    nbytes, counts = got["program"]
+    # all-gather result: the (256, 64) float32 rows; all-reduce result:
+    # the (8, 8) sum; reduce-scatter result: 32 / 16 = 2 rows of 8.
+    assert nbytes == {"all-gather": 256 * 64 * 4, "all-reduce": 8 * 8 * 4,
+                      "reduce-scatter": 2 * 8 * 4, "all-to-all": 0.0,
+                      "collective-permute": 0.0}
+    assert counts == {"all-gather": 1, "all-reduce": 1, "reduce-scatter": 1,
+                      "all-to-all": 0, "collective-permute": 0}

@@ -76,9 +76,12 @@ def test_shapes_and_applicability_equal():
 def test_unknown_ids_raise():
     with pytest.raises(KeyError, match="unknown arch"):
         tconfigs.get_config("llama-70b")
-    # The renderer's own config comes with the dry-run launcher.
-    with pytest.raises(KeyError, match="unknown arch"):
-        tconfigs.get_config("lsgaussian")
+    # The renderer's own config is an extra id, as in the reference.
+    got, want = tconfigs.get_config("lsgaussian"), \
+        jconfigs.get_config("lsgaussian")
+    assert type(got).__name__ == type(want).__name__ == "RendererArch"
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert tconfigs.EXTRA_IDS == jconfigs.EXTRA_IDS
     with pytest.raises(KeyError):
         tconfigs.get_shape("train_8k")
 
