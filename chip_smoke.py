@@ -65,6 +65,16 @@ Phases (each prints its own lines; a failed check exits non-zero):
    frames/s, the B and R histories, first vs steady rounds, peak memory
    and the device idle share of one profiled round; the LDU fill kernel
    launched once per served frame.
+5b. The slot split (``serve/placement.py``): 4 streams of 4 frames over
+   phase 5's two scenes through ``build_render_fn(cam, cfg, (cuda:0,) *
+   D, multi_scene=True)`` for D = 4 (one slot a group: the single-stream
+   branch) and D = 2, each against the plain path (frames and carries
+   within 1e-5, records exact), with both paths' wall times and the
+   kernels' launches; then phase 5's traffic through a ``StreamServer``
+   with ``use_sharding`` on the card's own devices (``num_devices`` 1)
+   and forced onto ``(cuda:0,) * 2`` (``num_devices`` 2), every session
+   of the forced run equal to its solo render bit for bit. The groups
+   share one card and run one after another: no gain is expected.
 6. LM serving (the renderer's tensors freed first): yi-9b at its
    published width and depth in bfloat16 (8.83 B parameters, random
    weights from a seed). ``launch/serve.serve`` at the launcher's
@@ -128,7 +138,9 @@ Phases (each prints its own lines; a failed check exits non-zero):
    with phase 8's NCCL one). Every applicable cell must be ``ok`` and
    ``long_500k`` skipped with the reference's reason; prints each
    cell's per-device FLOPs, bytes, collective bytes by kind, memory and
-   seconds, and its ``launch/roofline.analyze`` terms on H100 constants.
+   seconds, and its ``launch/roofline.analyze`` terms on H100 constants;
+   each train_4k cell's temp beside its value while the loss's gradient
+   was held at its global shape (it must fall; yi-9b's below 60 GB).
 9b. Phase 7's own cell counted on a (1, 1) fake mesh: its FLOPs equal
    phase 7's ``FlopCounterMode`` count of a real step exactly; its
    predicted peak memory (arguments + temp) within DRYRUN_MEM_BAND of
@@ -176,6 +188,7 @@ PREPROCESS_FLOPS = 200
 LDU_STEP_CYCLES = 8
 
 N_GAUSSIANS = 131_072
+BLOB_GAUSSIANS = 100_000    # phase 5's second scene
 WIDTH, HEIGHT = 1920, 1088
 N_FRAMES = 10
 SEED = 0
@@ -244,6 +257,25 @@ def bound(nbytes, flops):
 
 def max_err(a, b):
     return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def kernel_counts():
+    """Every kernel wrapper's launch count, by kernel name."""
+    from repro_torch.kernels import (ldu_fill, preprocess, raster_plan,
+                                     raster_tile, tile_sort)
+    return {"raster_tile": raster_tile.raster_tile,
+            "raster_plan_fused": raster_plan.raster_plan_fused,
+            "preprocess_geom": preprocess.preprocess_geom,
+            "tile_sort": tile_sort.tile_sort, "ldu_fill": ldu_fill.ldu_fill}
+
+
+def reset_counts():
+    for fn in kernel_counts().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in kernel_counts().items()}
 
 
 def theoretical_occupancy(regs, threads, smem):
@@ -1024,8 +1056,6 @@ def phase_ldu_kernel(key_bins, warped, flush, report):
 def phase_slice(scene, cam, poses, cfg):
     from repro_torch.core import engine, pipeline
     from repro_torch.core.metrics import psnr
-    from repro_torch.kernels import (ldu_fill, preprocess, raster_plan,
-                                     tile_sort)
     print("== phase 3: the slice (render_trajectory)", flush=True)
     print(f"  config: {WIDTH}x{HEIGHT} ({cam.num_tiles} tiles), N="
           f"{N_GAUSSIANS} structured_scene sh_degree 3, {N_FRAMES}-frame "
@@ -1035,19 +1065,13 @@ def phase_slice(scene, cam, poses, cfg):
           "1.6e10 entries per plane at that size", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    raster_plan.raster_plan_fused.launches = 0
-    preprocess.preprocess_geom.launches = 0
-    tile_sort.tile_sort.launches = 0
-    ldu_fill.ldu_fill.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = engine.render_trajectory(scene, cam, poses, cfg)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = {"raster_plan_fused": raster_plan.raster_plan_fused.launches,
-                "preprocess_geom": preprocess.preprocess_geom.launches,
-                "tile_sort": tile_sort.tile_sort.launches,
-                "ldu_fill": ldu_fill.ldu_fill.launches}
+    launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"  trajectory (first run, with first-use costs): "
           f"{total_s * 1e3:.1f} ms for {N_FRAMES} frames, "
@@ -1360,40 +1384,10 @@ def device_split(events, wall_ms):
     return busy_ms, len(kernels), 1 - busy_ms / wall_ms
 
 
-def phase_serve(cam, cfg):
-    """The serve loop at full width: two scenes in one bucket, Poisson
-    traffic, impl "cuda"."""
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import engine
-    from repro_torch.core.projection import preprocess as project
-    from repro_torch.kernels import (ldu_fill, preprocess, raster_plan,
-                                     raster_tile, tile_sort)
-    from repro_torch.obs.trace import validate_chrome_trace
-    from repro_torch.scenes.synthetic import (random_blob_scene,
-                                              structured_scene)
-    from repro_torch.serve import (PoissonTraffic, SceneRegistry,
-                                   ServeConfig, StreamServer, TrafficConfig)
-    from repro_torch.serve.server import sample_trajectory
-    print("== phase 5: serve (StreamServer, impl cuda)", flush=True)
-    scfg = ServeConfig(chunk=4, b_buckets=(2, 4), r_buckets=(512, 1024, 2048),
-                       adapt_every=2, sim_latency=True, trace=True,
-                       scene_buckets=(65536, 131072), collect_frames=True)
-    scfg_cfg = dataclasses.replace(cfg, impl="cuda")
-    originals = [structured_scene(SEED, N_GAUSSIANS, sh_degree=3),
-                 random_blob_scene(SEED + 1, 100_000, sh_degree=3)]
-    reg = SceneRegistry(scfg.scene_buckets)
-    entries = [reg.register(s) for s in originals]
-    check(len({e.bucket for e in entries}) == 1,
-          f"both scenes padded into one bucket {entries[0].bucket}")
-    srv = StreamServer(reg, cam, scfg_cfg, scfg)
-    traffic = PoissonTraffic(TrafficConfig(n_streams=6, rate=3.0,
-                                           min_frames=8, max_frames=12,
-                                           seed=SEED, scenes=2))
-    print(f"  config: {scfg_cfg}", flush=True)
-    print(f"  serve: {scfg}", flush=True)
-
-    # Record each session, the poses it brought and, per round, which
-    # sessions rendered how many frames at which R.
+def record_serving(srv, reg):
+    """Wrap ``srv``'s attach and its batchers' builds: the returned lists
+    fill as it serves with (session, poses) and, per rendered group,
+    (R, slot sids, counts)."""
     sessions, chunks = [], []
     attach = srv.try_attach
 
@@ -1413,23 +1407,92 @@ def phase_serve(cam, cfg):
             return batch
 
         bat.build = recording_build
+    return sessions, chunks
+
+
+def solo_frames(sess, poses, chunks, scene, cam, cfg):
+    """A solo render of a served session's poses from ``scene``, at the R
+    of each round it rendered in, and those R."""
+    from repro_torch.core import engine
+    rs = [(r, counts[sids.index(sess.sid)]) for r, sids, counts in chunks
+          if sess.sid in sids and counts[sids.index(sess.sid)]]
+    pose_t = torch.as_tensor(poses, device=cam.device)
+    if len({r for r, _ in rs}) == 1:
+        return engine.render_trajectory(
+            scene, cam, pose_t, dataclasses.replace(
+                cfg, rerender_capacity=rs[0][0]),
+            phase=sess.phase).frames, [r for r, _ in rs]
+    carry, frames, f = engine.init_carry(cam, pose_t[0]), [], 0
+    for r, n in rs:
+        step_fn = engine.make_frame_step(scene, cam, dataclasses.replace(
+            cfg, rerender_capacity=r), sess.phase)
+        for _ in range(n):
+            carry, (rgb, _) = step_fn(carry, pose_t[f])
+            frames.append(rgb)
+            f += 1
+    return torch.stack(frames), [r for r, _ in rs]
+
+
+def serve_traffic():
+    """Phase 5's traffic: 6 Poisson streams of 8-12 frames over the two
+    scenes."""
+    from repro_torch.serve import PoissonTraffic, TrafficConfig
+    return PoissonTraffic(TrafficConfig(n_streams=6, rate=3.0, min_frames=8,
+                                        max_frames=12, seed=SEED, scenes=2))
+
+
+def serve_config():
+    from repro_torch.serve import ServeConfig
+    return ServeConfig(chunk=4, b_buckets=(2, 4), r_buckets=(512, 1024, 2048),
+                       adapt_every=2, scene_buckets=(65536, 131072),
+                       collect_frames=True)
+
+
+def serve_scenes(cfg, scfg, device="cuda"):
+    """Phase 5's render config (impl "cuda"), its two scenes and a
+    registry holding them padded into one bucket, and their entries."""
+    from repro_torch.scenes.synthetic import (random_blob_scene,
+                                              structured_scene)
+    from repro_torch.serve import SceneRegistry
+    originals = [structured_scene(SEED, N_GAUSSIANS, sh_degree=3,
+                                  device=device),
+                 random_blob_scene(SEED + 1, BLOB_GAUSSIANS, sh_degree=3,
+                                   device=device)]
+    reg = SceneRegistry(scfg.scene_buckets, device=device)
+    entries = [reg.register(s) for s in originals]
+    check(len({e.bucket for e in entries}) == 1,
+          f"both scenes padded into one bucket {entries[0].bucket}")
+    return dataclasses.replace(cfg, impl="cuda"), originals, reg, entries
+
+
+def phase_serve(cam, cfg):
+    """The serve loop at full width: two scenes in one bucket, Poisson
+    traffic, impl "cuda"."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.projection import preprocess as project
+    from repro_torch.obs.trace import validate_chrome_trace
+    from repro_torch.serve import StreamServer, TrafficConfig
+    from repro_torch.serve.server import sample_trajectory
+    print("== phase 5: serve (StreamServer, impl cuda)", flush=True)
+    scfg = dataclasses.replace(serve_config(), sim_latency=True, trace=True)
+    scfg_cfg, originals, reg, entries = serve_scenes(cfg, scfg)
+    srv = StreamServer(reg, cam, scfg_cfg, scfg)
+    traffic = serve_traffic()
+    print(f"  config: {scfg_cfg}", flush=True)
+    print(f"  serve: {scfg}", flush=True)
+
+    # Record each session, the poses it brought and, per round, which
+    # sessions rendered how many frames at which R.
+    sessions, chunks = record_serving(srv, reg)
     warm_s = srv.warmup()
-    raster_tile.raster_tile.launches = 0
-    raster_plan.raster_plan_fused.launches = 0
-    preprocess.preprocess_geom.launches = 0
-    tile_sort.tile_sort.launches = 0
-    ldu_fill.ldu_fill.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     report = srv.run(traffic, max_rounds=200)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = {"raster_tile": raster_tile.raster_tile.launches,
-                "raster_plan_fused": raster_plan.raster_plan_fused.launches,
-                "preprocess_geom": preprocess.preprocess_geom.launches,
-                "tile_sort": tile_sort.tile_sort.launches,
-                "ldu_fill": ldu_fill.ldu_fill.launches}
+    launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"  run: {total_s:.3f} s, {report['rounds']} rounds "
           f"({report['busy_rounds']} busy), {report['frames']} frames, "
@@ -1474,7 +1537,7 @@ def phase_serve(cam, cfg):
     served_poses = [p for sess, poses in sessions
                     if sess.scene_id == entries[1].scene_id for p in poses]
     n_valid = sum(int(project(blob, cam.with_pose(torch.as_tensor(
-        p, device=cam.device)), near=cfg.near).valid[100_000:].sum())
+        p, device=cam.device)), near=cfg.near).valid[BLOB_GAUSSIANS:].sum())
         for p in served_poses)
     check(n_valid == 0, f"padding rows invalid at all {len(served_poses)} "
           "poses the padded scene was served at")
@@ -1484,30 +1547,12 @@ def phase_serve(cam, cfg):
     pick = next((x for x in sessions if x[0].scene_id == entries[1].scene_id),
                 sessions[0])
     sess, poses = pick
-    rs = [(r, counts[sids.index(sess.sid)]) for r, sids, counts in chunks
-          if sess.sid in sids and counts[sids.index(sess.sid)]]
     scene = originals[[e.scene_id for e in entries].index(sess.scene_id)]
-    pose_t = torch.as_tensor(poses, device=cam.device)
-    if len({r for r, _ in rs}) == 1:
-        solo = engine.render_trajectory(
-            scene, cam, pose_t, dataclasses.replace(
-                scfg_cfg, rerender_capacity=rs[0][0]),
-            phase=sess.phase).frames
-    else:
-        carry, frames, f = engine.init_carry(cam, pose_t[0]), [], 0
-        for r, n in rs:
-            step_fn = engine.make_frame_step(scene, cam, dataclasses.replace(
-                scfg_cfg, rerender_capacity=r), sess.phase)
-            for _ in range(n):
-                carry, (rgb, _) = step_fn(carry, pose_t[f])
-                frames.append(rgb)
-                f += 1
-        solo = torch.stack(frames)
-    served = torch.cat(sess.frames)
-    check(torch.equal(served, solo),
+    solo, rs = solo_frames(sess, poses, chunks, scene, cam, scfg_cfg)
+    check(torch.equal(torch.cat(sess.frames), solo),
           f"session {sess.sid} ({len(poses)} frames, phase {sess.phase}, "
-          f"scene {sess.scene_id}, R per chunk {[r for r, _ in rs]}) equals "
-          f"a solo render from the unpadded scene bit for bit")
+          f"scene {sess.scene_id}, R per chunk {rs}) equals a solo render "
+          f"from the unpadded scene bit for bit")
 
     # The device idle share of one steady round, profiled after the
     # measured run (the profiler's start and teardown would otherwise
@@ -1533,6 +1578,136 @@ def phase_serve(cam, cfg):
     srv.run(max_rounds=srv.rounds + 10)
     check(not srv.manager.sessions, "the profiled streams finished too")
     return launches
+
+
+# Phase 5b: the slot split (serve/placement.py) at phase 5's width. B =
+# SPLIT_SLOTS streams of SPLIT_FRAMES frames (ragged counts) over phase
+# 5's two scenes in contiguous scene groups, split over (cuda:0,) * D for
+# each D in SPLIT_DEVICES against the plain path: frames and carries
+# within SPLIT_ATOL, records and frame_active exactly. Then phase 5's
+# traffic through a StreamServer with use_sharding on the card's own
+# devices (one card: one device divides B, num_devices 1) and forced
+# onto (cuda:0,) * 2 (num_devices 2), every session of the forced run
+# equal to its solo render bit for bit. The groups share the one card
+# and run one after another: no gain is expected.
+SPLIT_SLOTS, SPLIT_FRAMES = 4, 4
+SPLIT_COUNTS = (4, 3, 4, 2)
+SPLIT_SLOT_SCENE = (0, 0, 1, 1)
+SPLIT_DEVICES = (4, 2)
+SPLIT_ATOL = 1e-5
+SPLIT_KERNELS = ("preprocess_geom", "raster_tile", "ldu_fill")
+
+
+def split_mismatch(got, want):
+    """What differs between two StreamsResults past SPLIT_ATOL (frames,
+    float carries) or at all (records, frame_active, steps, poses)."""
+    bad = []
+    if max_err(got.frames, want.frames) > SPLIT_ATOL:
+        bad.append(f"frames {max_err(got.frames, want.frames)}")
+    for name, g, w in zip(want.records.stacked._fields,
+                          got.records.stacked, want.records.stacked):
+        if (g is None) != (w is None) or (w is not None
+                                          and not torch.equal(g, w)):
+            bad.append(f"record {name}")
+    for name in ("frame_active", "counts", "phases"):
+        if not torch.equal(getattr(got, name), getattr(want, name)):
+            bad.append(name)
+    gc_, wc = got.carries, want.carries
+    if not (torch.equal(gc_.step, wc.step)
+            and torch.equal(gc_.prev_pose, wc.prev_pose)):
+        bad.append("carry step / pose")
+    for name, g, w in zip(wc.state._fields, gc_.state, wc.state):
+        if (g is None) != (w is None):
+            bad.append(f"carry {name}")
+        elif w is not None and (
+                not torch.equal(g, w) if g.dtype == torch.bool
+                else max_err(g.float(), w.float()) > SPLIT_ATOL):
+            bad.append(f"carry {name}")
+    return bad
+
+
+def phase_split(cam, cfg):
+    from repro_torch.core import engine
+    from repro_torch.scenes.trajectory import dolly_trajectory
+    from repro_torch.serve import StreamServer, build_render_fn, stream_mesh
+    print("== phase 5b: the slot split over (cuda:0,) * D and the server's "
+          "per-B placement", flush=True)
+    t_phase = time.perf_counter()
+    card = cam.device
+    scfg = serve_config()
+    scfg_cfg, originals, reg, entries = serve_scenes(cfg, scfg, card)
+    split_cfg = dataclasses.replace(scfg_cfg, rerender_capacity=1024)
+    ids = [e.scene_id for e in entries]
+    stack = reg.stack(ids, SPLIT_SLOTS)
+    poses = torch.stack([dolly_trajectory(
+        SPLIT_FRAMES, start=(0.05 * i, -0.3, -2.0), target=(0.0, 0.0, 6.0),
+        device=card) for i in range(SPLIT_SLOTS)])
+    args = (stack, poses,
+            torch.tensor(SPLIT_COUNTS, dtype=torch.int32, device=card),
+            engine.stream_phases(SPLIT_SLOTS, split_cfg.window, device=card),
+            engine.init_stream_carries(cam, poses),
+            torch.tensor(SPLIT_SLOT_SCENE, dtype=torch.int32, device=card))
+
+    def run(mesh):
+        fn = build_render_fn(cam, split_cfg, mesh, multi_scene=True)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, read_counts()
+
+    run(None)                     # first use: library loads, allocations
+    plain, plain_ms, plain_n = run(None)
+    print(f"  plain path: B {SPLIT_SLOTS} x F {SPLIT_FRAMES}, counts "
+          f"{SPLIT_COUNTS}, slot scenes {SPLIT_SLOT_SCENE}: {plain_ms:.3f} ms"
+          f" wall, launches {plain_n}", flush=True)
+    for d in SPLIT_DEVICES:
+        mesh = stream_mesh(SPLIT_SLOTS, (card,) * d)
+        check(mesh == (card,) * d, f"stream_mesh({SPLIT_SLOTS}) over "
+              f"{d} handles to {card}: {d} devices")
+        got, ms, n = run(mesh)
+        check(all(n[k] > 0 for k in SPLIT_KERNELS)
+              and n["raster_plan_fused"] == 0,
+              f"D = {d} (local B {SPLIT_SLOTS // d}): {ms:.3f} ms wall "
+              f"({ms / plain_ms:.4f} of the plain path), launches {n}")
+        bad = split_mismatch(got, plain)
+        check(not bad, f"D = {d}: frames {max_err(got.frames, plain.frames)}"
+              f" max abs (<= {SPLIT_ATOL}), records and frame_active "
+              f"exact, carries within {SPLIT_ATOL} {bad or ''}")
+    del plain, got, args, stack
+
+    for devices in (None, (card,) * 2):
+        srv = StreamServer(reg, cam, scfg_cfg, scfg, device=card,
+                           devices=devices)
+        sessions, chunks = record_serving(srv, reg)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = srv.run(serve_traffic(), max_rounds=200)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = read_counts()
+        want = 2 if devices else 1
+        where = "(cuda:0,) * 2" if devices else "the card's own devices"
+        check(report["streams_finished"] == 6 and not srv.manager.sessions
+              and report["num_devices"] == want
+              and all(n[k] > 0 for k in SPLIT_KERNELS),
+              f"server, use_sharding on {where}: 6 of 6 streams, num_devices "
+              f"{report['num_devices']} (want {want}), {wall:.3f} s, "
+              f"{report['frames']} frames, {report['frames_per_second']} "
+              f"frames/s, B history {report['slots_history']}, launches {n}")
+        if devices:
+            for sess, sposes in sessions:
+                scene = originals[ids.index(sess.scene_id)]
+                solo, rs = solo_frames(sess, sposes, chunks, scene, cam,
+                                       scfg_cfg)
+                check(torch.equal(torch.cat(sess.frames), solo),
+                      f"session {sess.sid} ({len(sposes)} frames, scene "
+                      f"{sess.scene_id}, R {rs}) equals its solo render bit "
+                      f"for bit")
+        del srv, sessions, chunks
+    print(f"  phase 5b: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 # Phase 6: the LM serving harness. yi-9b at its published width and
@@ -2590,6 +2765,16 @@ def phase_comm(smi, shard):
 DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 DRYRUN_MULTI_POD = (("yi-9b", "decode_32k"),)
 DRYRUN_PROCS = 8
+# Each train_4k cell's temp per device (GB) on 16 x 16 while the
+# cross-entropy's backward held the logits' gradient at its global
+# (B, S, V) shape on every device (this phase's output on an H100 80GB
+# HBM3, torch 2.11.0+cu128), and the most yi-9b's may take now that the
+# loss runs on each rank's shard (its local gradient, 16 x 4,096 x 4,000
+# float32, is 1.05 GB).
+DRYRUN_TEMP_BEFORE_GB = {"yi-9b": 305.854, "starcoder2-7b": 235.159,
+                         "minicpm3-4b": 367.930,
+                         "moonshot-v1-16b-a3b": 776.971}
+DRYRUN_TEMP_MAX_GB = {"yi-9b": 60.0}
 DRYRUN_TIMEOUT_S = 600
 DRYRUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build", "dryrun")
@@ -2674,6 +2859,14 @@ def phase_dryrun(smi):
               f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB, outputs "
               f"{mem['output_size_in_bytes'] / 1e9:.3f} GB, aliased "
               f"{mem['alias_size_in_bytes'] / 1e9:.3f} GB", flush=True)
+        if shape == "train_4k" and not mp:
+            temp, before = (mem["temp_size_in_bytes"] / 1e9,
+                            DRYRUN_TEMP_BEFORE_GB[arch])
+            most = DRYRUN_TEMP_MAX_GB.get(arch, before)
+            check(temp < most, f"{arch} train_4k temp {temp:.3f} GB per "
+                  f"device, {before:.3f} GB with the loss's gradient at its "
+                  f"global shape ({temp / before:.4f} of it; must be below "
+                  f"{most:.3f} GB)")
         print(f"    roofline (H100 SXM: {RL.PEAK_FLOPS / 1e12:.1f} TFLOP/s, "
               f"{RL.HBM_BW / 1e12:.2f} TB/s, link {RL.LINK_BW / 1e9:.0f} "
               f"GB/s): compute {roof.compute_s:.6f} s, memory "
@@ -2785,6 +2978,7 @@ def main():
     phase_profile(scene, cam, poses, cfg)
     del key_bins, base
     serve_launches = phase_serve(cam, cfg)
+    phase_split(cam, cfg)
     # Each kernel's launches on its own main path: the trajectory for the
     # fused kernel and preprocess, the serve loop for the tile raster
     # kernel. The tile sorter's count is read after both runs; no render

@@ -4,6 +4,10 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use into ``build/repro_torch/lib<name>.so`` at the repository root
 (a directory ``.gitignore`` lists), for ``sm_90a`` only. A library is
 rebuilt when its source or any ``csrc/*.cuh`` header is newer.
+
+The slot split (``serve/placement.py``) renders on several devices from
+several host threads, so a library's first load and the wrappers'
+launch counts (``count_launch``) take a lock.
 """
 from __future__ import annotations
 
@@ -12,12 +16,15 @@ import functools
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Optional, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -59,7 +66,14 @@ def cuda_tool(name: str) -> str:
 def load_library(name: str) -> ctypes.CDLL:
     """Load ``lib<name>.so``, compiling it first if missing or stale."""
     src, out = CSRC / f"{name}.cu", library_path(name)
-    newest = max(p.stat().st_mtime for p in (src, *CSRC.glob("*.cuh")))
-    if not out.exists() or out.stat().st_mtime < newest:
-        compile_library(name)
-    return ctypes.CDLL(str(out))
+    with _LOAD_LOCK:
+        newest = max(p.stat().st_mtime for p in (src, *CSRC.glob("*.cuh")))
+        if not out.exists() or out.stat().st_mtime < newest:
+            compile_library(name)
+        return ctypes.CDLL(str(out))
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, a kernel wrapper's launch count."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1

@@ -142,7 +142,7 @@ def ldu_fill(workload: torch.Tensor, active: torch.Tensor, num_blocks: int,
         return ldu_fill_host(workload, active, num_blocks, mode)
     out = ldu_fill_cuda(workload, active, num_blocks, mode)
     if workload.shape[0]:
-        ldu_fill.launches += 1
+        _build.count_launch(ldu_fill)
     return out
 
 

@@ -271,7 +271,7 @@ def preprocess_geom(means, log_scales, quats, opacity, w2c,
                                      intrin, **kw)
     out = preprocess_geom_cuda(means, log_scales, quats, opacity, w2c,
                                intrin, **kw)
-    preprocess_geom.launches += 1
+    _build.count_launch(preprocess_geom)
     return out
 
 

@@ -348,7 +348,7 @@ def raster_plan_fused(mean2d, conic, rgb, opacity, depth, origins, counts,
                                  counts, slot_active, chunk=chunk, tile=tile)
     out = raster_plan_cuda(mean2d, conic, rgb, opacity, depth, origins,
                            counts, slot_active, chunk=chunk, tile=tile)
-    raster_plan_fused.launches += 1
+    _build.count_launch(raster_plan_fused)
     return out
 
 

@@ -99,7 +99,7 @@ def raster_tile(mean2d, conic, rgb, opacity, depth, origins, counts, *,
                               counts, chunk=chunk, tile=tile)
     out = raster_tile_cuda(mean2d, conic, rgb, opacity, depth, origins,
                            counts, chunk=chunk, tile=tile)
-    raster_tile.launches += 1
+    _build.count_launch(raster_tile)
     return out
 
 

@@ -133,7 +133,7 @@ def tile_sort(keys: torch.Tensor, values: torch.Tensor):
         _check_inputs(keys, values)
         return tile_sort_ref(keys, values)
     out = tile_sort_cuda(keys, values)
-    tile_sort.launches += 1
+    _build.count_launch(tile_sort)
     return out
 
 

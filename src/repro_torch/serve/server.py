@@ -7,8 +7,19 @@ round from per-bucket demand (aging bounds any bucket's wait; SLO classes
 bias ordering and the elastic-B resize), then every planned bucket group
 — one ``ContinuousBatcher`` per scene bucket — resizes, admits its
 waiting streams, builds its (B, chunk) batch and renders it through its
-cached render callable. A ``torch.cuda.synchronize`` on the server's
-device closes the round, and all groups' carries commit after it.
+cached render callable. A ``torch.cuda.synchronize`` on every device
+the round rendered on closes the round, and all groups' carries commit
+after it.
+
+Placement (``ServeConfig.use_sharding``): each B gets its own slot split
+(``placement.stream_mesh(B, devices)``, memoized per B): the render
+callable splits the B slots over the split's D devices in contiguous
+groups of B/D, and the batcher packs same-scene streams into those
+groups (``group=B/D``), so a device's slots gather few scenes. ``devices``
+defaults to the server's device followed by the host's other CUDA
+devices; where one device divides B (a one-card host, or
+``use_sharding=False``) every slot renders on the server's device and
+``report()["num_devices"]`` is 1.
 
 Overlap: the reference dispatches every group asynchronously and waits
 once, so one bucket's device work overlaps the next group's host work.
@@ -78,7 +89,7 @@ from repro_torch.serve.admission import (AdmissionConfig,
 from repro_torch.serve.batcher import ContinuousBatcher
 from repro_torch.serve.cache import (BucketPolicy, ExecutableCache,
                                      validate_buckets)
-from repro_torch.serve.placement import build_render_fn
+from repro_torch.serve.placement import build_render_fn, stream_mesh
 from repro_torch.serve.scenes import DEFAULT_SCENE_BUCKETS, SceneRegistry
 from repro_torch.serve.session import SessionManager, StreamSession
 
@@ -93,8 +104,7 @@ class ServeConfig:
     quantile: float = 0.9       # demand quantile for capacity selection
     adapt_every: int = 4        # rounds between R re-evaluation
     history: int = 4096         # demand samples kept for the quantile
-    # Kept for the reference's API; the port ignores it and renders every
-    # slot on the server's device (multi-GPU placement is not ported).
+    # Split each B's slots over the server's devices (placement.py).
     use_sharding: bool = True
     scene_buckets: Tuple[int, ...] = DEFAULT_SCENE_BUCKETS
     collect_frames: bool = False  # retain rendered frames on sessions
@@ -258,7 +268,9 @@ class StreamServer:
 
     Renders on ``device`` (``"cuda"`` by default; pass ``device="cpu"``
     to serve on the CPU). A given ``SceneRegistry`` must hold its scenes
-    on that device; the camera is moved there.
+    on that device; the camera is moved there. ``devices`` are those the
+    slots may split over (module docstring); the first must be
+    ``device``, and a device may repeat.
     """
 
     TRACE_KEEP = 1024     # most recent per-round dicts kept for report()
@@ -267,8 +279,27 @@ class StreamServer:
 
     def __init__(self, scene: Union[GaussianScene, SceneRegistry],
                  cam: Camera, base_cfg: RenderConfig,
-                 scfg: ServeConfig = ServeConfig(), *, device="cuda"):
+                 scfg: ServeConfig = ServeConfig(), *, device="cuda",
+                 devices: Optional[Sequence] = None):
         self.device = resolve_device(device)
+
+        def indexed(d):
+            d = torch.device(d)
+            return torch.device("cuda", torch.cuda.current_device()) \
+                if d.type == "cuda" and d.index is None else d
+
+        here = indexed(self.device)
+        if devices is None:
+            devices = [here]
+            if here.type == "cuda":
+                devices += [torch.device("cuda", i)
+                            for i in range(torch.cuda.device_count())
+                            if i != here.index]
+        self.devices = tuple(map(indexed, devices))
+        if self.devices[0] != here:
+            raise ValueError(f"the first of devices {self.devices} must be "
+                             f"the server's device {here}")
+        self._meshes: Dict[int, Optional[Tuple[torch.device, ...]]] = {}
         if isinstance(scene, SceneRegistry):
             self.registry = scene
             if not len(self.registry):
@@ -406,9 +437,14 @@ class StreamServer:
         return int(self._m_concurrent.value)
 
     def _sync(self) -> None:
-        """Wait for the server's device (the round barrier)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Wait for the server's device and every device a slot split
+        holds (the round barrier)."""
+        devs = {self.device}
+        for mesh in self._meshes.values():
+            devs.update(mesh or ())
+        for dev in devs:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     # -- scenes ------------------------------------------------------------
     @property
@@ -498,14 +534,26 @@ class StreamServer:
         return (bucket, int(b), self.scfg.chunk, int(r),
                 self.base_cfg.window, self.base_cfg.impl)
 
-    def _build_for(self, r: int):
+    def _mesh_for(self, b: int):
+        if not self.scfg.use_sharding:
+            return None
+        if b not in self._meshes:
+            self._meshes[b] = stream_mesh(b, self.devices)
+        return self._meshes[b]
+
+    def _group_for(self, b: int) -> int:
+        mesh = self._mesh_for(b)
+        return b // len(mesh) if mesh is not None else b
+
+    def _build_for(self, b: int, r: int):
         cfg = dataclasses.replace(self.base_cfg, rerender_capacity=int(r))
-        return build_render_fn(self.cam, cfg, multi_scene=True)
+        return build_render_fn(self.cam, cfg, self._mesh_for(b),
+                               multi_scene=True)
 
     def _executable(self, bucket, b: int):
         r = self.capacity
         return self.cache.get(self._key_for(bucket, b, r),
-                              lambda: self._build_for(r))
+                              lambda: self._build_for(b, r))
 
     def _batcher_for(self, bucket) -> ContinuousBatcher:
         bat = self._batchers.get(bucket)
@@ -518,7 +566,7 @@ class StreamServer:
             n = bucket[0] if contrib_enabled(self.base_cfg) \
                 else None
             bat = ContinuousBatcher(
-                b0, self.scfg.chunk, self.cam,
+                b0, self.scfg.chunk, self.cam, group=self._group_for(b0),
                 collect_frames=self.scfg.collect_frames, bucket=bucket,
                 n_gaussians=n, tracer=self.tracer)
             self._batchers[bucket] = bat
@@ -583,7 +631,7 @@ class StreamServer:
                     for r in self.policy.r_buckets:
                         fn = self.cache.get(
                             self._key_for(bucket, b, r),
-                            lambda r=r: self._build_for(r))
+                            lambda b=b, r=r: self._build_for(b, r))
                         fn(scenes, batch.poses, batch.counts, batch.phases,
                            batch.carries, batch.slot_scene)
             self._sync()
@@ -633,7 +681,7 @@ class StreamServer:
         bat = self._batcher_for(bucket)
         b = self.policy.pick_slots(int(math.ceil(d.weighted_depth)))
         if b != bat.slots:
-            bat.resize(b, self.manager)
+            bat.resize(b, self.manager, group=self._group_for(b))
             self.slots_history.append(b)
 
     def _observe(self, result) -> None:
@@ -916,6 +964,7 @@ class StreamServer:
     def report(self) -> dict:
         lat = np.asarray(self._m_latency.values())
         frames = int(self.active_slot_frames)
+        meshes = [m for m in self._meshes.values() if m is not None]
         self._publish_residency()
         adm = self.admission.report()
         fairness = {k: adm[k] for k in
@@ -952,6 +1001,6 @@ class StreamServer:
             "rounds_trace_dropped": int(self._m_trace_drop.value),
             "cache_log": [{"event": ev, "key": list(map(str, key))}
                           for ev, key in self.cache.log],
-            "num_devices": 1,
+            "num_devices": max((len(m) for m in meshes), default=1),
             "cache": self.cache.stats(),
         }

@@ -11,8 +11,13 @@ placed by ``distributed.sharding.param_shardings`` and the batch by
 ``batch_shardings``; DTensor's propagation inserts the collectives, as
 GSPMD's does for the reference. The logits are redistributed to batch
 over the data axes and vocab over "model" (when it divides the vocab),
-as the reference's sharding constraint does, so the cross-entropy runs
-vocab-sharded. Each gradient is redistributed to its parameter's
+as the reference's sharding constraint does, and the cross-entropy runs
+on each rank's shard (``cross_entropy(..., sharding=)``): where "model"
+splits the vocab, each rank reduces its slice's max, sum of exp and true
+logit and all-reduces them over "model" (a vocab-parallel loss), and its
+backward is local, so no rank holds the logits' gradient at its global
+(B, S, V) shape, as the reference's partitioner keeps the cotangent in
+the logits' sharding. Each gradient is redistributed to its parameter's
 placements (FSDP's reduce-scatter) before the update. Metrics come back
 as plain tensors, equal on every rank.
 """
@@ -22,14 +27,16 @@ import contextlib
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed import _functional_collectives as funcol
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import sharding as S
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
+from repro_torch.models import sharding_hooks as hooks
 from repro_torch.train.optimizer import (OptimizerConfig, OptState,
                                          adamw_update, init_opt_state)
 
@@ -62,18 +69,94 @@ def on_mesh(mesh):
     return implicit_replication()
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean next-token CE in float32 (or wider). logits (B,S,V), labels
-    (B,S) int; with ``mask`` (B,S) the masked mean, its count floored at
-    one. The true logit's trailing dim is dropped after the subtraction:
-    on vocab-sharded logits the gather's result is a masked partial sum
-    whose mask has the gather's shape, so it is reduced before the
-    select changes that shape."""
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """(B, S) next-token NLL in float32 (or wider)."""
     logits = L.wide(logits)
     lse = torch.logsumexp(logits, dim=-1)
-    true_logit = torch.gather(logits, -1, labels[..., None].long())
-    nll = (lse[..., None] - true_logit)[..., 0]
+    return lse - torch.gather(logits, -1, labels[..., None].long())[..., 0]
+
+
+def _all_reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
+    if group is None:
+        return x
+    out = funcol.all_reduce(x, op, group)
+    return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) \
+        else out
+
+
+def _wide_copy(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.promote_types(x.dtype, torch.float32), copy=True)
+
+
+class _ShardNLL(torch.autograd.Function):
+    """One rank's rows of the NLL from its local logits ``x`` (b, S, v):
+    the vocab's slice starting at ``offset``, its terms all-reduced over
+    ``group`` (the vocab axis; None where ``x`` holds the whole vocab).
+    The slice's max, sum of ``exp(x - max)`` and true logit (where the
+    label falls in the slice, else 0) are reduced; the backward is local,
+    ``softmax(x) - onehot`` times the incoming gradient. Each pass holds
+    one float32 copy of ``x`` at a time (exp in place)."""
+
+    @staticmethod
+    def forward(ctx, x, labels, group, offset):
+        idx = labels.long() - offset
+        inside = (idx >= 0) & (idx < x.shape[-1])
+        idx = idx.clamp(0, x.shape[-1] - 1)
+        e = _wide_copy(x)
+        true = torch.gather(e, -1, idx[..., None])[..., 0]
+        true = _all_reduce(torch.where(inside, true, torch.zeros_like(true)),
+                           "sum", group)
+        m = _all_reduce(e.amax(-1), "max", group)
+        s = _all_reduce(e.sub_(m[..., None]).exp_().sum(-1), "sum", group)
+        del e
+        lse = torch.log(s) + m
+        ctx.save_for_backward(x, lse, idx, inside)
+        return lse - true
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, lse, idx, inside = ctx.saved_tensors
+        g = _wide_copy(x).sub_(lse[..., None]).exp_()
+        g.scatter_add_(-1, idx[..., None], -inside[..., None].to(g.dtype))
+        return g.mul_(grad[..., None]).to(x.dtype), None, None, None
+
+
+def _nll_on_mesh(logits: torch.Tensor, labels: torch.Tensor,
+                 sharding: S.Sharding) -> torch.Tensor:
+    """``_nll`` of logits placed by ``sharding`` (batch over the batch
+    axes, vocab over "model" where it divides), each rank on its own
+    shard through ``_ShardNLL`` (``run_local``): the result is split like
+    the batch, and the logits' gradient keeps their placement. Where
+    nothing is split, the DTensor runs ``_nll`` itself (every shard is
+    the whole tensor, and the arithmetic stays the one-device one)."""
+    mesh, placements = sharding
+    if not any(isinstance(p, Shard) for p in placements):
+        return _nll(S.place(logits, sharding), labels)
+    rows = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in placements)
+    group, offset = None, 0
+    vocab = [i for i, p in enumerate(placements)
+             if isinstance(p, Shard) and p.dim == 2]
+    if vocab:
+        (axis,) = vocab
+        group = (mesh, axis)
+        offset = mesh.get_local_rank(axis) * (logits.shape[-1]
+                                              // mesh.size(axis))
+    return hooks.run_local(
+        lambda x, y: _ShardNLL.apply(x, y, group, offset), mesh,
+        (logits, labels), (placements, rows), rows, tuple(logits.shape[:2]))
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None,
+                  sharding: Optional[S.Sharding] = None) -> torch.Tensor:
+    """Mean next-token CE in float32 (or wider). logits (B,S,V), labels
+    (B,S) int; with ``mask`` (B,S) the masked mean, its count floored at
+    one. With ``sharding`` (the logits' placement on a mesh) each rank
+    computes its own shard's terms (``_nll_on_mesh``), so the logits'
+    gradient keeps that placement."""
+    nll = _nll(logits, labels) if sharding is None \
+        else _nll_on_mesh(logits, labels, sharding)
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
     return torch.mean(nll)
@@ -90,9 +173,8 @@ def make_loss_fn(cfg: ArchConfig, mesh=None):
 
     def loss_fn(params, batch):
         logits, aux, _ = M.forward(params, batch, cfg)
-        if logits_sharding is not None:
-            logits = S.place(logits, logits_sharding)
-        loss = cross_entropy(logits, batch["labels"], batch.get("mask"))
+        loss = cross_entropy(logits, batch["labels"], batch.get("mask"),
+                             logits_sharding)
         total = loss + MOE_AUX_WEIGHT * aux
         return total, {"loss": loss, "aux_loss": aux}
 

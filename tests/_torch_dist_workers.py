@@ -24,6 +24,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 PG_TIMEOUT_S = 120
 
@@ -334,6 +336,64 @@ def comm_worker(rank, world, payload):
             "sequential": seq.numpy()}
 
 
+def loss_worker(rank, world, payload):
+    """``train_step.cross_entropy`` on a (2, 2) mesh for each case (full
+    logits, labels, mask, and whether "model" splits the vocab): the
+    loss, the logits' gradient (its placements, local shape and full
+    value) and the most elements of any plain tensor an op made on this
+    rank in the forward and backward (``LocalShapes``)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import train_step as TT
+
+    mesh = make_host_mesh(2, 2)
+    out = {}
+    for name, case in payload.items():
+        vocab = Shard(2) if case["split"] else Replicate()
+        sharding = S.Sharding(mesh, (Shard(0), vocab))
+        rows = (Shard(0), Replicate())
+        logits = S.place(torch.tensor(case["logits"]), sharding)
+        logits.requires_grad_()
+        labels = S.place(torch.tensor(case["labels"]), S.Sharding(mesh, rows))
+        mask = None if case["mask"] is None else S.place(
+            torch.tensor(case["mask"]), S.Sharding(mesh, rows))
+        with LocalShapes() as shapes:
+            loss = TT.cross_entropy(logits, labels, mask, sharding)
+            loss.backward()
+        grad = logits.grad
+        out[name] = {
+            "loss": float(loss.full_tensor()),
+            "grad": grad.full_tensor().numpy(),
+            "grad_placements": tuple(map(str, grad.placements)),
+            "grad_local": tuple(grad.to_local().shape),
+            "largest": shapes.largest, "is_dtensor": isinstance(grad, DTensor)}
+    return out
+
+
+class LocalShapes(TorchDispatchMode):
+    """Records the largest plain tensor (by elements) that an op outputs
+    on this rank: DTensor ops are handed on to DTensor, whose local ops
+    come back here; the fake and meta tensors of its shape propagation
+    are not counted."""
+
+    def __init__(self):
+        super().__init__()
+        self.largest = (0, ())
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor) and not t.is_meta \
+                    and not isinstance(t, FakeTensor):
+                self.largest = max(self.largest, (t.numel(), tuple(t.shape)))
+        return out
+
+
 # ---------------------------------------------------------------------------
 # dry-run workers (no gloo group: each makes its own fake one)
 # ---------------------------------------------------------------------------
@@ -362,7 +422,8 @@ def _hook_specs(hooks_dict, mesh):
 
 def dryrun_worker(rank, world, payload):
     """The port's dry-run on fake groups: the reduced configs' cells
-    (``payload["archs"]`` x ``["shapes"]``) on ``["multi_pod"]``'s
+    (``payload["archs"]`` x ``["shapes"]``, and ``["vocab_cells"]``'
+    (arch, shape, vocab) with the vocab replaced) on ``["multi_pod"]``'s
     production mesh and their ``["corrected"]`` cells; with
     ``["full"]`` (archs) also those full configs' hooks and input specs
     on both meshes, the statuses of ``["status"]``'s cells, per-device
@@ -382,6 +443,12 @@ def dryrun_worker(rank, world, payload):
             r = D.run_cell(arch, shape, multi_pod=mp, save=False,
                            cfg_override=cfg, device_type="cpu")
             out["cells"][arch, shape] = _cell_summary(r)
+    for arch, shape, vocab in payload.get("vocab_cells", ()):
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  vocab_size=vocab)
+        r = D.run_cell(arch, shape, multi_pod=mp, save=False,
+                       cfg_override=cfg, device_type="cpu")
+        out["cells"][arch, shape, vocab] = _cell_summary(r)
     for arch, shape, layers in payload.get("corrected", ()):
         cfg = dataclasses.replace(get_config(arch).reduced(),
                                   num_layers=layers)

@@ -15,6 +15,10 @@ Held here:
     einsum before the DTensor flatten fault was repaired), and its
     ``decode_32k`` argument bytes per device equal the reference's
     compiled module's;
+  - a reduced train_4k cell with a large vocab (split over "model", and
+    not) keeps its temp per device below the global logits' float32
+    bytes (B x S x V x 4): the cross-entropy's gradient keeps the
+    logits' placement;
   - ``long_500k`` is skipped with the reference's reason, and
     ``lsgaussian`` is an error in both;
   - on a (1, 1) mesh the per-device FLOPs equal ``FlopCounterMode``'s
@@ -31,12 +35,14 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 import _torch_dist_workers as W
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import ARCH_IDS, get_config, get_shape
 from repro_torch.models import model as TM
 from repro_torch.train import optimizer as TO
 from repro_torch.train import train_step as TT
 
 CELLS = ("train_4k", "prefill_32k", "decode_32k")
+# (arch, vocab) of the train_4k cells whose logits dominate their temp
+VOCAB_CELLS = [("yi-9b", 16384), ("minicpm3-4b", 16383)]
 # (name, seq, batch, kind) of the (1, 1) cells held against FlopCounterMode
 ONE_DEVICE = ("one", 32, 4, None)
 STATUS = [(a, "long_500k") for a in ARCH_IDS] + [("lsgaussian", "train_4k"),
@@ -51,7 +57,9 @@ def runs(tmp_path_factory):
     jobs = [W.Spawned(W.dryrun_worker, 1, tmp_path_factory.mktemp(name),
                       payload, gloo=False)
             for name, payload in (
-                ("cells", {"archs": ARCH_IDS, "shapes": CELLS}),
+                ("cells", {"archs": ARCH_IDS, "shapes": CELLS,
+                           "vocab_cells": [(a, "train_4k", v)
+                                           for a, v in VOCAB_CELLS]}),
                 ("rest", {"full": ARCH_IDS, "status": STATUS,
                           "one_device": one}))]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -111,6 +119,22 @@ def test_reduced_cells_run_on_16x16(runs, arch):
     assert 0 < train["alias_size_in_bytes"] < train["argument_size_in_bytes"]
     assert got["cells"][arch, "prefill_32k"]["memory"][
         "alias_size_in_bytes"] == 0
+
+
+@pytest.mark.parametrize("arch,vocab", VOCAB_CELLS)
+def test_train_temp_below_the_global_logits(runs, arch, vocab):
+    """A reduced train_4k cell with a vocab large enough that the logits
+    dominate: 16,384 splits over "model" (16), 16,383 does not (as
+    minicpm3-4b's 73,448): the temp per device stays below the global
+    logits' float32 bytes either way."""
+    got, _ = runs
+    shape = get_shape("train_4k")
+    logits = shape.global_batch * shape.seq_len * vocab * 4
+    r = got["cells"][arch, "train_4k", vocab]
+    assert r["status"] == "ok", r.get("error")
+    temp = r["memory"]["temp_size_in_bytes"]
+    print(arch, vocab, "train_4k temp", temp, "global logits", logits)
+    assert temp < logits
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
