@@ -34,7 +34,10 @@ Phases (each prints its own lines; a failed check exits non-zero):
    (CUDA events), the plain version's time, a library call's time where
    one computes the same function, and the least time the card could
    take for the work these inputs need (bytes over 3.35 TB/s or fp32
-   operations over 67 TFLOP/s). For the LDU fill also the floor of its
+   operations over 67 TFLOP/s). 2a and 2c bound the pixels past rounding:
+   stop flips (T near 1e-4) and alpha flips (a lane's alpha within
+   ALPHA_ULPS of 1/255), each within its derived bound, at most 1e-4 of
+   the pixels in all. For the LDU fill also the floor of its
    design, printed apart: active slots x one dependent step's latency.
 3. The slice: a 10-frame dolly trajectory at 1920x1088 over a
    131,072-Gaussian structured scene (SH degree 3) with capacity 1024,
@@ -94,6 +97,25 @@ Phases (each prints its own lines; a failed check exits non-zero):
    steps at batch 4 (moonshot: the capped MoE decode dispatch), each
    gated at LM_F32_GATE x std(logits). This slice adds no kernel: the
    reference computes attention in jnp, outside any Pallas kernel.
+6c. The ssm, hybrid, encdec and vlm families (mamba2-780m, zamba2-7b,
+   whisper-large-v3, internvl2-2b from tests/_torch_family_configs.py)
+   at full width. float32 with TF32 off, depth cut to LM_CHECK_LAYERS
+   (zamba2: one shared group of 6 and a tail of 1; whisper's encoder as
+   deep as its decoder), each gate LM_F32_GATE x std(logits): mamba2's
+   prefill of FAMILY_PROMPT (two SSD chunks) + FAMILY_DECODE decode
+   steps against the forward, and the forward at ssm_chunk 256 against
+   a finer chunk; zamba2's decode steps from ``init_cache`` against the
+   forward (the reference's forward builds no decode-layout cache for
+   it); whisper's and internvl2's (after the 256-token vision prefix)
+   prefill + one decode step against the forward, and whisper's decode
+   through the projected ``enc_out`` against the precomputed
+   ``cross_kv``. Then each at full depth in bf16 from seeded random
+   weights: batch 4, a 512-token prompt (zamba2: through
+   ``decode_step``), 32 greedy decode steps twice from the prompt's
+   cache (the same ids), every logit finite; prefill and decode-step
+   medians, tok/s, launches of a profiled step, peak memory, and the
+   decode bound (weight + cache bytes over the HBM rate). No kernel:
+   the reference's Mamba2 mixer and cross-attention are jnp.
 7. LM training (phase 6's weights freed first): minicpm3-4b at its
    published width and depth (62 layers, MLA, 4.26 B parameters) in
    bfloat16 with ``remat="full"``, random weights from a seed, through
@@ -135,7 +157,9 @@ Phases (each prints its own lines; a failed check exits non-zero):
    widths: every shape on the fake 16 x 16 group and yi-9b decode_32k on
    2 x 16 x 16, each cell a ``python -m repro_torch.launch.dryrun``
    process, DRYRUN_PROCS at once (a fake group cannot share a process
-   with phase 8's NCCL one). Every applicable cell must be ``ok`` and
+   with phase 8's NCCL one), started when phase 7 ends so that they run
+   beside phase 7b, which times nothing, and reported after 7b, before
+   phase 8's timed steps. Every applicable cell must be ``ok`` and
    ``long_500k`` skipped with the reference's reason; prints each
    cell's per-device FLOPs, bytes, collective bytes by kind, memory and
    seconds, and its ``launch/roofline.analyze`` terms on H100 constants;
@@ -385,13 +409,75 @@ def check_stop_flips(rgb_g, t_g, rgb_w, t_w, off, what):
     return max(max_err(t_g[off], t_w[off]), max_err(rgb_g[off], rgb_w[off]))
 
 
-def compare_raster(got, want, what, chunk):
-    """Hold the fused kernel's outputs against the plain version's.
+# The blend's alpha cut (kernels/ref.py ALPHA_MIN), and how near it an
+# alpha must lie to explain a pixel past rounding away from the stop:
+# ALPHA_ULPS float32 ulps of 1/255 (2^-31 each), as the CPU tests hold
+# the port's renders against the reference's (tests/_torch_parity.py).
+ALPHA_MIN = 1.0 / 255.0
+ALPHA_ULPS = 16
+ALPHA_ULP = 2.0 ** -31
+
+
+def lane_alphas(args, idx):
+    """(n, K) alphas of every lane at the n tile pixels ``idx`` (rows of
+    (slot, pixel row, pixel column)), as the blend computes them before
+    its 1/255 cut."""
+    mean2d, conic, _, opacity, _, origins, _ = args
+    r = idx[:, 0]
+    px = origins[r, 0] + idx[:, 2] + 0.5
+    py = origins[r, 1] + idx[:, 1] + 0.5
+    dx = px[:, None] - mean2d[r, :, 0]
+    dy = py[:, None] - mean2d[r, :, 1]
+    c = conic[r]
+    power = (-0.5 * (c[..., 0] * dx * dx + c[..., 2] * dy * dy)
+             - c[..., 1] * dx * dy)
+    return torch.clamp_max(opacity[r] * torch.exp(power), 0.99)
+
+
+def check_alpha_flips(rgb_g, t_g, rgb_w, t_w, off, alphas, what):
+    """Pixels past rounding away from the stop must be alpha flips,
+    within their bound.
+
+    Where a Gaussian's alpha at a pixel lands within rounding of 1/255,
+    one version blends it and the other does not: such a pixel holds a
+    lane whose alpha (``alphas``, one row per pixel of ``off``) lies
+    within ALPHA_ULPS of 1/255. That Gaussian, of alpha a, enters the
+    blend at transmittance T_b <= 1 with the weight a T_b and scales the
+    rest of the blend (weights summing to at most T_b, colours in
+    [0, 2)) by 1 - a: T moves by at most a and rgb by at most 2 a, with a
+    at most 1/255 + ALPHA_ULPS ulps. Flips may touch at most 1e-4 of the
+    pixels.
+    """
+    n_off = int(off.sum())
+    check(n_off <= off.numel() // 10_000,
+          f"{what}: {n_off} pixels past rounding away from the stop "
+          f"<= 1e-4 of {off.numel()}")
+    if not n_off:
+        return 0.0
+    near = ((alphas - ALPHA_MIN).abs() <= ALPHA_ULPS * ALPHA_ULP).any(dim=1)
+    check(bool(near.all()),
+          f"{what}: each of those {n_off} pixels holds a lane whose alpha "
+          f"lies within {ALPHA_ULPS} ulps of 1/255")
+    a_hi = ALPHA_MIN + ALPHA_ULPS * ALPHA_ULP
+    d_t = (t_g[off] - t_w[off]).abs()
+    d_rgb = (rgb_g[off] - rgb_w[off]).abs().amax(dim=-1)
+    check(bool((d_t <= a_hi).all() and (d_rgb <= 2 * a_hi).all()),
+          f"{what}: at those pixels |dT| <= {a_hi:.6g} and |drgb| <= "
+          f"{2 * a_hi:.6g} (max |dT| {max_err(t_g[off], t_w[off]):.3g}, "
+          f"max |drgb| {max_err(rgb_g[off], rgb_w[off]):.3g})")
+    return max(max_err(t_g[off], t_w[off]), max_err(rgb_g[off], rgb_w[off]))
+
+
+def compare_raster(got, want, what, chunk, args):
+    """Hold the fused kernel's outputs against the plain version's on the
+    bins ``args``.
 
     Rounding (the plain version's cumprod is a parallel scan and its
     colour sum a matmul) keeps every pixel within atol 2e-5 (the
     reference suite's fused-vs-jnp pin) + rtol 1e-5 (depths run to ~20),
-    except stop flips (``check_stop_flips``).
+    except stop flips (``check_stop_flips``, pixels at T < 1e-2) and
+    alpha flips (``check_alpha_flips``, the others): at most 1e-4 of
+    the pixels in all.
     """
     names = ("rgb", "trans", "exp_depth", "trunc_depth")
     off = torch.zeros(got[1].shape, dtype=torch.bool, device=got[1].device)
@@ -400,8 +486,17 @@ def compare_raster(got, want, what, chunk):
         off |= bad.reshape(bad.shape[0], 16, 16, -1).any(dim=-1)
     errs = {n: max_err(g[~off], w[~off]) for n, g, w in
             zip(names, got[:4], want[:4])}
-    print(f"  {what}: max abs err outside stop flips {errs}", flush=True)
-    flip = check_stop_flips(got[0], got[1], want[0], want[1], off, what)
+    print(f"  {what}: max abs err outside stop and alpha flips {errs}",
+          flush=True)
+    check(int(off.sum()) <= off.numel() // 10_000,
+          f"{what}: {int(off.sum())} pixels past rounding in all (stop "
+          f"and alpha flips) <= 1e-4 of {off.numel()}")
+    stop = off & (torch.maximum(got[1], want[1]) < 1e-2)
+    flip = check_stop_flips(got[0], got[1], want[0], want[1], stop, what)
+    rest = off & ~stop
+    flip = max(flip, check_alpha_flips(
+        got[0], got[1], want[0], want[1], rest,
+        lane_alphas(args, rest.nonzero()), what))
     d_proc = (got[4] - want[4]).abs()
     n_proc = int((d_proc > 0).sum())
     check(n_proc <= int(off.sum()) and int(d_proc.max()) <= chunk,
@@ -484,7 +579,7 @@ def phase_raster_kernel(args, flush, report):
     want = raster_plan.raster_plan_torch(*args, active, chunk=chunk,
                                          work=work)
     torch.cuda.synchronize()
-    err = compare_raster(got, want, "as binned", chunk)
+    err = compare_raster(got, want, "as binned", chunk, args)
 
     gen = torch.Generator(device=opacity.device).manual_seed(SEED + 1)
     shuf, perm = shuffle_lanes(args, gen)
@@ -502,7 +597,7 @@ def phase_raster_kernel(args, flush, report):
           "shuffled lanes: lane_contrib permutes with the lanes")
     err = max(err, compare_raster(
         got_s, raster_plan.raster_plan_torch(*shuf, active, chunk=chunk),
-        "shuffled", chunk))
+        "shuffled", chunk, shuf))
 
     masked = torch.arange(r, device=opacity.device) % 2 == 0
     counts_m = torch.where(masked, counts, 0)
@@ -525,7 +620,7 @@ def phase_raster_kernel(args, flush, report):
     err = max(err, compare_raster(
         raster_plan.raster_plan_cuda(*cut, active, chunk=chunk),
         raster_plan.raster_plan_torch(*cut, active, chunk=chunk),
-        "K 960", chunk))
+        "K 960", chunk, cut))
     for wide in (2048, 4096):
         padded = tuple(torch.nn.functional.pad(
             x, [0, 0] * (x.dim() - 2) + [0, wide - k]) for x in args[:5])
@@ -720,7 +815,7 @@ def phase_tile_raster_kernel(args, flush):
     work = {}
     want = raster_plan.raster_chunked(*args, chunk=chunk, work=work)
     torch.cuda.synchronize()
-    err = compare_raster(got, want, "tile kernel vs plain", chunk)
+    err = compare_raster(got, want, "tile kernel vs plain", chunk, args)
     # Binning ordered each slot's lanes by (depth, id) and the fused
     # kernel sorts by (depth, lane), so both blend one order with one
     # blend loop (csrc/blend.cuh): the outputs must be bit-identical.
@@ -750,7 +845,7 @@ def phase_tile_raster_kernel(args, flush):
         + (origins, counts.clamp(max=960))
     compare_raster(raster_tile.raster_tile_cuda(*cut, chunk=48),
                    raster_plan.raster_chunked(*cut, chunk=48),
-                   "K 960, chunk 48: tile kernel vs plain", 48)
+                   "K 960, chunk 48: tile kernel vs plain", 48, cut)
     print(f"  raster_tile_kernel static SASS by class: "
           f"{sass_classes('raster_tile', 'raster_tile_kernel')}", flush=True)
     # A warp runs all 32 x chunk (pixel, lane) pairs of each chunk it
@@ -1989,6 +2084,276 @@ def phase_lm_checks():
         free_cuda()
 
 
+# Phase 6c: the four families no registered config reaches, from
+# tests/_torch_family_configs.py (the reference's own configs).
+FAMILY_NAMES = ("mamba2-780m", "zamba2-7b", "whisper-large-v3",
+                "internvl2-2b")
+FAMILY_PROMPT = 512          # two SSD chunks of 256
+FAMILY_DECODE = 64           # ssm: decode steps, and the finer chunk
+FAMILY_HYBRID_STEPS = 8      # hybrid: decode steps from init_cache
+FAMILY_BATCH = 4             # bf16 serving batch
+FAMILY_NEW = 32              # bf16 greedy decode steps
+
+
+def family_configs():
+    """{name: the port's ArchConfig} of the four family configs."""
+    sys.path.insert(0, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from _torch_family_configs import FAMILY_CONFIGS
+    from repro_torch.configs.base import ArchConfig
+    return {name: ArchConfig(**FAMILY_CONFIGS[name])
+            for name in FAMILY_NAMES}
+
+
+def family_batch(cfg, tokens, gen):
+    """{"tokens"} plus the stub frontends' inputs the family takes (unit
+    normal, from ``gen``), in the model's dtype."""
+    b = tokens.shape[0]
+    batch = {"tokens": tokens}
+    dtype = getattr(torch, cfg.dtype)
+    for key, n in (("frames", cfg.encoder_seq if cfg.family == "encdec"
+                    else 0),
+                   ("vision", cfg.num_vision_tokens if cfg.family == "vlm"
+                    else 0)):
+        if n:
+            batch[key] = torch.randn((b, n, cfg.d_model), generator=gen,
+                                     device="cuda").to(dtype)
+    return batch
+
+
+def clone_cache(cache):
+    """A copy of a ``DecodeCache`` whose tensors are new (decode writes
+    its buffers in place)."""
+    def copy(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, tuple):
+            return type(x)(*(copy(v) for v in x))
+        return x
+    return copy(cache)
+
+
+def cache_tensors(cache):
+    out = []
+    for x in cache[:-1]:
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        elif x is not None:
+            out.extend(x)
+    return out
+
+
+def family_checks(name, cfg, gen):
+    """Phase 6c's float32 self-consistency gates for one family at full
+    width, depth cut (see ``phase_lm_families``)."""
+    from repro_torch.models import model as M
+    from repro_torch.train import serve_step as S
+    params = M.init_params(cfg, seed=SEED)
+    print(f"  {name}: {cfg.num_layers} layers"
+          f"{f', encoder {cfg.encoder_layers}' if cfg.encoder_layers else ''}"
+          f", float32, {lm_bytes(params.parameters()) / 1e9:.2f} GB of "
+          f"weights", flush=True)
+    if cfg.family == "ssm":
+        s, k = FAMILY_PROMPT, FAMILY_DECODE
+        toks = torch.randint(0, cfg.vocab_size, (2, s + k), generator=gen,
+                             device="cuda")
+        fine = dataclasses.replace(cfg, ssm_chunk=k)     # k divides s + k
+        full = M.forward(params, {"tokens": toks}, fine)[0]
+        coarse = M.forward(params, {"tokens": toks[:, :s]}, cfg)[0]
+        logits_gate(f"{name} forward over {s} at ssm_chunk "
+                    f"{cfg.ssm_chunk} ({s // cfg.ssm_chunk} chunks) vs {k}",
+                    coarse, full[:, :s], LM_F32_GATE)
+        _, cache = S.prefill(params, {"tokens": toks[:, :s]}, cfg)
+        worst = 0.0
+        for i in range(s, s + k):
+            dec, cache = M.decode_step(params, toks[:, i:i + 1], cache, cfg)
+            ref = full[:, i]
+            worst = max(worst, float((dec[:, 0] - ref).abs().max()
+                                     / ref.std()))
+        check(worst <= LM_F32_GATE,
+              f"{name} prefill({s}) + {k} decode_steps vs forward over "
+              f"{s + k} (ssm_chunk {k}): worst max|d|/std {worst:.3g} <= "
+              f"{LM_F32_GATE}")
+    elif cfg.family == "hybrid":
+        k = FAMILY_HYBRID_STEPS
+        toks = torch.randint(0, cfg.vocab_size, (2, k), generator=gen,
+                             device="cuda")
+        full = M.forward(params, {"tokens": toks}, cfg)[0]
+        cache = M.init_cache(cfg, 2, 16)
+        worst = 0.0
+        for i in range(k):
+            dec, cache = M.decode_step(params, toks[:, i:i + 1], cache, cfg)
+            worst = max(worst, float((dec[:, 0] - full[:, i]).abs().max()
+                                     / full[:, i].std()))
+        check(worst <= LM_F32_GATE,
+              f"{name} {k} decode_steps from init_cache vs forward over "
+              f"{k} (groups of {cfg.shared_attn_every} + tail "
+              f"{cfg.num_layers % cfg.shared_attn_every}): worst "
+              f"max|d|/std {worst:.3g} <= {LM_F32_GATE}")
+    else:
+        s = 16
+        toks = torch.randint(0, cfg.vocab_size, (2, s + 1), generator=gen,
+                             device="cuda")
+        batch = family_batch(cfg, toks, gen)
+        full = M.forward(params, batch, cfg)[0][:, -1]
+        _, cache = S.prefill(params, dict(batch, tokens=toks[:, :s]), cfg,
+                             max_seq=cache_len(cfg, s) + 16)
+        what = f"{name} prefill({s}) + decode_step vs forward over {s + 1}"
+        if cfg.family == "vlm":
+            what += f" after {cfg.num_vision_tokens} vision positions"
+        static = clone_cache(cache)
+        dec, _ = M.decode_step(params, toks[:, s:], static, cfg)
+        logits_gate(what + (" (cross_kv)" if cfg.family == "encdec"
+                            else ""), dec[:, 0], full, LM_F32_GATE)
+        if cfg.family == "encdec":
+            proj, _ = M.decode_step(params, toks[:, s:],
+                                    cache._replace(cross_kv=None), cfg)
+            logits_gate(f"{name} decode_step kv_x=enc_out vs static_kv",
+                        proj[:, 0], dec[:, 0], LM_F32_GATE)
+    del params
+    free_cuda()
+
+
+def cache_len(cfg, s):
+    """Cache positions a prompt of ``s`` tokens takes (vlm: the vision
+    prefix too)."""
+    return s + (cfg.num_vision_tokens if cfg.family == "vlm" else 0)
+
+
+def family_serve(name, cfg, gen, smi):
+    """Phase 6c's bf16 run of one family at full width and depth."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as M
+    from repro_torch.train import serve_step as S
+    b, s, new = FAMILY_BATCH, FAMILY_PROMPT, FAMILY_NEW
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, seed=SEED)
+    weight_b = lm_bytes(params.parameters())
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device="cuda")
+    batch = family_batch(cfg, toks, gen)
+    max_seq = cache_len(cfg, s) + new
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    prefill_ms = []
+    if cfg.family == "hybrid":
+        # The reference's forward builds no decode-layout cache for the
+        # hybrid family: the prompt goes through decode_step.
+        cache = M.init_cache(cfg, b, max_seq)
+        for i in range(s):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, cache = M.decode_step(params, toks[:, i:i + 1], cache,
+                                          cfg)
+            end.record()
+            end.synchronize()
+            prefill_ms.append(start.elapsed_time(end))
+            finite &= torch.isfinite(logits).all()
+        prompt_ms = sum(prefill_ms)
+        how = (f"prompt through decode_step: {prompt_ms:.1f} ms, median "
+               f"step {statistics.median(prefill_ms):.3f} ms")
+    else:
+        for _ in range(4):                  # the first is warm-up
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, cache = S.prefill(params, batch, cfg, max_seq=max_seq)
+            end.record()
+            end.synchronize()
+            prefill_ms.append(start.elapsed_time(end))
+            finite &= torch.isfinite(logits).all()
+        prompt_ms = statistics.median(prefill_ms[1:])
+        how = (f"prefill median {prompt_ms:.3f} ms over 3 after a warm-up "
+               f"({b * cache_len(cfg, s) / prompt_ms * 1e3:.0f} prompt "
+               f"positions/s)")
+    first = torch.argmax(logits[:, -1:], dim=-1)
+    cache_b = lm_bytes(cache_tensors(cache))
+    start_cache = clone_cache(cache)
+
+    def greedy(c):
+        nonlocal finite
+        tok, out, times = first, [], []
+        for _ in range(new):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, c = M.decode_step(params, tok, c, cfg)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            finite &= torch.isfinite(logits).all()
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+            out.append(tok)
+        return torch.cat(out, 1), times
+
+    ids, times = greedy(cache)
+    again, _ = greedy(clone_cache(start_cache))
+    step_ms = statistics.median(times[2:])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        M.decode_step(params, first, clone_cache(start_cache), cfg)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy_ms, n_kernels, idle = device_split(prof.events(), wall)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    bound_ms = (weight_b + cache_b) / HBM_BYTES_PER_S * 1e3
+    print(f"  {name} bf16, {cfg.num_layers} layers: {how}; decode step "
+          f"median {step_ms:.3f} ms over {new - 2} steps after 2 "
+          f"(CUDA events; min {min(times):.3f}, max {max(times):.3f}), "
+          f"{b / step_ms * 1e3:.1f} tok/s at batch {b}; bound "
+          f"{bound_ms:.3f} ms = ({weight_b / 1e9:.3f} GB weights + "
+          f"{cache_b / 1e9:.3f} GB cache at max_seq {max_seq}) / "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, {bound_ms / step_ms:.4f} of "
+          f"it; one step profiled: {n_kernels} launches, kernels "
+          f"{busy_ms:.3f} ms, idle share {idle:.3f}; peak memory "
+          f"{peak:.2f} GB ({smi})", flush=True)
+    check(bool(finite), f"{name}: every prompt and decode logit finite")
+    check(torch.equal(ids, again) and bool(
+        ((ids >= 0) & (ids < cfg.vocab_size)).all()),
+        f"{name}: greedy decode of {new} tokens at batch {b} the same over "
+        f"two runs from the prompt's cache (first ids "
+        f"{ids[0, :6].tolist()})")
+    del params, cache, start_cache, logits
+    free_cuda()
+    return {"prompt_ms": prompt_ms, "step_ms": step_ms, "bound_ms": bound_ms,
+            "launches": n_kernels, "peak_gb": peak}
+
+
+def phase_lm_families(smi):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfgs = family_configs()
+    print(f"== phase 6c: the ssm, hybrid, encdec and vlm families "
+          f"({', '.join(FAMILY_NAMES)}) at full width: float32 checks, "
+          f"depth cut to {LM_CHECK_LAYERS} layers (hybrid "
+          f"{cfgs['zamba2-7b'].shared_attn_every + 1}: one shared group "
+          f"and a tail of 1; the encoder as deep as the decoder), TF32 off,"
+          f" each gate max|d| <= {LM_F32_GATE} x std(logits); then bf16 at "
+          f"full depth, batch {FAMILY_BATCH}, prompt {FAMILY_PROMPT}, "
+          f"{FAMILY_NEW} greedy decode steps ({smi})", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    for name, full in cfgs.items():
+        layers = full.shared_attn_every + 1 if full.family == "hybrid" \
+            else LM_CHECK_LAYERS
+        cut = dataclasses.replace(
+            full, num_layers=layers, dtype="float32",
+            encoder_layers=min(full.encoder_layers, LM_CHECK_LAYERS))
+        family_checks(name, cut, gen)
+    print(f"  float32 checks: {time.perf_counter() - t0:.1f} s", flush=True)
+    out = {}
+    for name, full in cfgs.items():
+        t1 = time.perf_counter()
+        out[name] = family_serve(name, full, gen, smi)
+        print(f"  {name}: {time.perf_counter() - t1:.1f} s", flush=True)
+    print(f"  phase 6c: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 # Phase 7: the LM harness's training path. minicpm3-4b is the one
 # registered config whose training state (bf16 parameters and gradients,
 # float32 moments: 12 bytes a parameter) fits one card at its published
@@ -2806,16 +3171,17 @@ def run_procs(cmds, env, procs, timeout, log_dir):
     return done
 
 
-def phase_dryrun(smi):
+def start_dryrun():
+    """Start phase 9's cells in the background: each a ``python -m
+    repro_torch.launch.dryrun`` process, DRYRUN_PROCS at once, run by
+    ``run_procs`` on a thread. Returns (cells, future of (done, wall s));
+    ``phase_dryrun`` waits for it. The processes work on the host's cores
+    only (fake groups and tensors), so they run beside phase 7b, whose
+    checks time nothing."""
     import shutil
-    from repro_torch.configs import get_config
-    from repro_torch.launch import roofline as RL
+    from concurrent.futures import ThreadPoolExecutor
     cells = [(a, sh, False) for a in LM_ARCHS for sh in DRYRUN_SHAPES] + \
         [(a, sh, True) for a, sh in DRYRUN_MULTI_POD]
-    print(f"== phase 9: dry-run on fake process groups, the four configs at "
-          f"their published widths: {len(cells)} cells, {DRYRUN_PROCS} "
-          f"processes at once ({smi}); torch {torch.__version__}",
-          flush=True)
     shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
     os.makedirs(DRYRUN_DIR)
     root = os.path.dirname(os.path.abspath(__file__))
@@ -2823,9 +3189,31 @@ def phase_dryrun(smi):
     cmds = [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
              "--shape", sh] + (["--multi-pod"] if mp else [])
             for a, sh, mp in cells]
+
+    def run():
+        t0 = time.perf_counter()
+        done = run_procs(cmds, env, DRYRUN_PROCS, DRYRUN_TIMEOUT_S,
+                         DRYRUN_DIR)
+        return done, time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(run)
+    pool.shutdown(wait=False)
+    return cells, future
+
+
+def phase_dryrun(smi, started):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import roofline as RL
+    cells, future = started
+    print(f"== phase 9: dry-run on fake process groups, the four configs at "
+          f"their published widths: {len(cells)} cells, {DRYRUN_PROCS} "
+          f"processes at once, started with phase 7b ({smi}); torch "
+          f"{torch.__version__}", flush=True)
     t0 = time.perf_counter()
-    done = run_procs(cmds, env, DRYRUN_PROCS, DRYRUN_TIMEOUT_S, DRYRUN_DIR)
-    print(f"  all cells: {time.perf_counter() - t0:.1f} s wall", flush=True)
+    done, wall_s = future.result()
+    print(f"  all cells: {wall_s:.1f} s wall ({time.perf_counter() - t0:.1f}"
+          f" s of it waited for here)", flush=True)
     for i, (arch, shape, mp) in enumerate(cells):
         mesh = "pod2x16x16" if mp else "pod16x16"
         rc, wall = done[i]
@@ -2996,12 +3384,21 @@ def main():
     free_cuda()
     lm = phase_lm_full(smi)
     phase_lm_checks()
+    families = phase_lm_families(smi)
     print(f"phase 6 summary: yi-9b bf16 serve {lm['tok_per_s']:.1f} tok/s, "
           f"decode step {lm['step_ms']:.3f} ms against a "
           f"{lm['bound_ms']:.3f} ms bound, peak memory {lm['peak_gb']:.2f} "
           f"GB ({smi})", flush=True)
+    print("phase 6c summary (bf16, full width and depth, batch "
+          f"{FAMILY_BATCH}): " + "; ".join(
+              f"{n} prompt {r['prompt_ms']:.1f} ms, decode step "
+              f"{r['step_ms']:.3f} ms vs {r['bound_ms']:.3f} ms bound, "
+              f"{r['launches']} launches, peak {r['peak_gb']:.2f} GB"
+              for n, r in families.items()) + f" ({smi})", flush=True)
     train = phase_train_full(smi)
+    dryrun = start_dryrun()
     phase_train_checks(smi)
+    phase_dryrun(smi, dryrun)
     print(f"phase 7 summary: {TRAIN_ARCH} bf16 train step "
           f"{train['step_ms']:.3f} ms against a {train['bound_ms']:.3f} ms "
           f"bound, MFU {train['mfu']:.4f}, {train['tok_per_s']:.1f} "
@@ -3029,7 +3426,6 @@ def main():
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
 
-    phase_dryrun(smi)
     phase_dryrun_phase7(smi, train)
 
     print(smi)

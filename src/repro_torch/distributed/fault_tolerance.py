@@ -6,8 +6,8 @@ The concrete mechanisms live where they act:
   - atomic checkpoints ..................... train/checkpoint.py
   - auto-resume + step watchdog ............ launch/train.py
   - deterministic seekable data ............ train/data.py
-  - elastic re-mesh on restore ............. not ported (one device;
-                                             ROADMAP Queue 1, item 8)
+  - elastic re-mesh on restore ............. train/checkpoint.py
+                                             (``restore(shardings=)``)
 
 This module adds the *decision* layer a 1000-node deployment needs:
 classify a failure, pick an action, and (in tests) inject failures.

@@ -90,11 +90,18 @@ def _unstack(tree, i: int):
 
 def _named_leaves(tree: Dict[str, Any], cfg) -> Dict[str, Any]:
     """A reference parameter-shaped tree (either layer layout) as
-    {the port's parameter name: numpy leaf}."""
-    layers = tree["layers"]
-    if isinstance(layers, dict):
-        layers = [_unstack(layers, i) for i in range(cfg.num_layers)]
-    return dict(_flatten(dict(tree, layers=list(layers))))
+    {the port's parameter name: numpy leaf}. The ``layers`` and
+    ``encoder`` stacks are unstacked where their leaves are stacked on
+    axis 0 (hybrid's ``layers`` always are); ``shared_attn`` and
+    ``vision_proj`` pass as they are."""
+    tree = dict(tree)
+    for name, n in (("layers", cfg.num_layers),
+                    ("encoder", cfg.encoder_layers)):
+        if isinstance(tree.get(name), dict):
+            tree[name] = [_unstack(tree[name], i) for i in range(n)]
+        elif name in tree:
+            tree[name] = list(tree[name])
+    return dict(_flatten(tree))
 
 
 def lm_params_from_numpy(tree: Dict[str, Any], cfg, *,
@@ -153,18 +160,24 @@ def train_state_from_numpy(params_tree: Dict[str, Any], opt_tree, cfg, *,
 
 
 def decode_cache_from_numpy(cache, *, device="cuda") -> M.DecodeCache:
-    """The reference's ``DecodeCache`` (KV or MLA) as the port's; the
-    index becomes a host integer."""
+    """The reference's ``DecodeCache`` as the port's: every field (``kv``
+    as KV or MLA, ``ssm`` as ``SSMState(h, conv)``, ``shared_kv`` and
+    ``cross_kv`` as KV, ``enc_out``; None stays None), each leaf keeping
+    its dtype; the index becomes a host integer."""
     dev = resolve_device(device)
-    if any(getattr(cache, f) is not None
-           for f in ("ssm", "shared_kv", "enc_out", "cross_kv")):
-        raise NotImplementedError(
-            "only the kv field of a DecodeCache is ported")
-    kv_type = {"KVCache": L.KVCache,
-               "MLACache": L.MLACache}[type(cache.kv).__name__]
-    kv = kv_type(*(_leaf(a, dev) for a in cache.kv))
-    return M.DecodeCache(kv=kv, ssm=None, shared_kv=None, enc_out=None,
-                         cross_kv=None, index=int(np.asarray(cache.index)))
+
+    def fields(x, kind):
+        return None if x is None else kind(*(_leaf(a, dev) for a in x))
+
+    kv = None if cache.kv is None else fields(
+        cache.kv, {"KVCache": L.KVCache,
+                   "MLACache": L.MLACache}[type(cache.kv).__name__])
+    return M.DecodeCache(
+        kv=kv, ssm=fields(cache.ssm, L.SSMState),
+        shared_kv=fields(cache.shared_kv, L.KVCache),
+        enc_out=None if cache.enc_out is None else _leaf(cache.enc_out, dev),
+        cross_kv=fields(cache.cross_kv, L.KVCache),
+        index=int(np.asarray(cache.index)))
 
 
 def to_numpy(x):

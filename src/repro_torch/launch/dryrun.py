@@ -117,14 +117,35 @@ def make_hooks(cfg, shape, mesh,
 def input_specs(cfg, shape, *, for_decode: bool = False
                 ) -> Dict[str, torch.Tensor]:
     """Shape and dtype stand-ins (tensors on the "meta" device) for every
-    model input of the cell. The reference's encoder frames and vision
-    embeddings belong to families the port does not run."""
+    model input of the cell: tokens and labels, encdec's encoder frames
+    (B, encoder_seq, D) and vlm's vision embeddings (B, V, D), both
+    bfloat16 as in the reference (a decode cell's have no labels; the
+    step itself takes the tokens only)."""
     b = shape.global_batch
     s = 1 if for_decode else shape.seq_len
     d = {"tokens": torch.empty((b, s), dtype=torch.int32, device="meta")}
     if not for_decode:
         d["labels"] = torch.empty((b, s), dtype=torch.int32, device="meta")
+    if cfg.family == "encdec":
+        d["frames"] = torch.empty((b, cfg.encoder_seq, cfg.d_model),
+                                  dtype=torch.bfloat16, device="meta")
+    if cfg.family == "vlm":
+        d["vision"] = torch.empty((b, cfg.num_vision_tokens, cfg.d_model),
+                                  dtype=torch.bfloat16, device="meta")
     return d
+
+
+def decode_cache(cfg, shape, device):
+    """The decode cell's cache before placement: ``init_cache`` at the
+    cell's batch and length, with a bfloat16 stand-in for encdec's
+    encoder output (B, encoder_seq, D), as the reference's cell has."""
+    cache = M.init_cache(cfg, shape.global_batch, shape.seq_len,
+                         device=device)
+    if cfg.family == "encdec":
+        cache = cache._replace(enc_out=torch.zeros(
+            (shape.global_batch, cfg.encoder_seq, cfg.d_model),
+            dtype=torch.bfloat16, device=device))
+    return cache
 
 
 def build_cell(cfg, shape, mesh):
@@ -166,7 +187,7 @@ def build_cell(cfg, shape, mesh):
                     S.distribute(cache, S.cache_shardings(cache, mesh)))
         return prefill, (params, batch())
 
-    cache = M.init_cache(cfg, shape.global_batch, shape.seq_len, device=dev)
+    cache = decode_cache(cfg, shape, dev)
     cache = S.distribute(cache, S.cache_shardings(cache, mesh))
 
     def decode(p, toks, c):

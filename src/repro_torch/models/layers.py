@@ -8,7 +8,8 @@ Conventions, as in the reference:
     reference's dict paths (``layers.0.attn.wq``).
   - activations (B, S, D); caches are explicit NamedTuples.
   - dims named in einsums: b batch, s/t seq, d model, h heads, g kv-heads,
-    k head_dim, f ffn, e experts, c capacity/latent, q chunk.
+    k head_dim, f ffn, e experts, c capacity/latent, n ssm-state, p
+    ssm-head-dim, q chunk.
 
 The arithmetic follows the reference op for op: products are einsums,
 attention scores are float32 and masked with -1e30, probabilities are
@@ -73,6 +74,11 @@ def _init(gen: Optional[torch.Generator], shape, scale=None,
 def _ones(shape, dtype, gen, device) -> torch.Tensor:
     return torch.ones(shape, dtype=dtype,
                       device=gen.device if gen is not None else device)
+
+
+def _zeros(shape, dtype, gen, device) -> torch.Tensor:
+    return torch.zeros(shape, dtype=dtype,
+                       device=gen.device if gen is not None else device)
 
 
 def wide(x: torch.Tensor) -> torch.Tensor:
@@ -351,7 +357,8 @@ def gqa_attention(params, x: torch.Tensor, positions: torch.Tensor,
                   return_cache: bool = False,
                   kv_x: Optional[torch.Tensor] = None,
                   static_kv: Optional[KVCache] = None):
-    """GQA self-attention.
+    """GQA attention; cross-attention when ``kv_x`` or ``static_kv`` is
+    given.
 
     Modes:
       - cache is None: full self-attention over x (prefill); when
@@ -360,38 +367,46 @@ def gqa_attention(params, x: torch.Tensor, positions: torch.Tensor,
         written into the cache in place at cache_index (``_write_cache``:
         dropped or clamped at the cache's end), attention over positions
         <= cache_index.
-    Cross-attention (``kv_x``, ``static_kv``) is not ported.
+      - kv_x: K/V projected from ``kv_x`` (the encoder's output), no RoPE
+        on Q or K, not causal.
+      - static_kv: precomputed cross-attention K/V (B, G, T, K): no
+        projection, no cache write, always the materialized softmax;
+        returns (y, None).
     """
-    if kv_x is not None or static_kv is not None:
-        raise NotImplementedError(
-            "cross-attention (kv_x / static_kv) is reached by no registered "
-            "config and is not ported (ROADMAP Queue 1)")
     s = x.shape[1]
     q = einsum("bsd,dhk->bshk", x, params["wq"])
-    k = einsum("bsd,dgk->bsgk", x, params["wk"])
-    v = einsum("bsd,dgk->bsgk", x, params["wv"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    k = k.transpose(1, 2)                                  # (B, G, S, K)
-    v = v.transpose(1, 2)
-
-    if cache is not None:
-        _write_cache(cache.k, k, cache_index, 2)
-        _write_cache(cache.v, v, cache_index, 2)
-        k, v, new_cache = cache.k, cache.v, cache
-        use_flash = False
+    use_flash, index = False, None
+    if static_kv is not None:
+        k, v, new_cache, causal = static_kv.k, static_kv.v, None, False
     else:
-        impl = get_flag("attn_impl", "auto")
-        use_flash = impl == "flash" or (impl == "auto"
-                                        and s >= FLASH_THRESHOLD)
-        new_cache = KVCache(k, v) if return_cache else None
+        src = x if kv_x is None else kv_x
+        k = einsum("bsd,dgk->bsgk", src, params["wk"])
+        v = einsum("bsd,dgk->bsgk", src, params["wv"])
+        if kv_x is None:                    # RoPE only for self-attention
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+        else:
+            causal = False
+        k = k.transpose(1, 2)                              # (B, G, T, K)
+        v = v.transpose(1, 2)
+        if cache is not None:
+            _write_cache(cache.k, k, cache_index, 2)
+            _write_cache(cache.v, v, cache_index, 2)
+            k, v, new_cache, index = cache.k, cache.v, cache, cache_index
+        else:
+            impl = get_flag("attn_impl", "auto")
+            use_flash = impl == "flash" or (
+                impl == "auto" and s >= FLASH_THRESHOLD
+                and k.shape[2] >= FLASH_THRESHOLD)
+            new_cache = KVCache(k, v) if return_cache else None
     out = _on_ranks(_gqa_core, (q, k, v), ((2, 1), (1, None), (1, None)),
                     "attn_scores_gqa", cfg.num_kv_heads,
                     hq=cfg.num_heads // cfg.num_kv_heads, causal=causal,
-                    cache_index=cache_index if cache is not None else None,
-                    flash=use_flash,
+                    cache_index=index, flash=use_flash,
                     causal_skip=bool(get_flag("causal_skip", False)))
     y = einsum("bshk,hkd->bsd", out, params["wo"])
+    if static_kv is not None:
+        return y, None
     return (y, new_cache) if (return_cache or cache is not None) else (y, None)
 
 
@@ -723,3 +738,170 @@ def _row_combine(hout, slot, weight, tok, *, s: int):
     y = torch.zeros((b * s, d), dtype=hout.dtype, device=hout.device)
     y.index_add_(0, (rows * s + tok).reshape(-1), contrib.reshape(-1, d))
     return y.reshape(b, s, d)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD) block
+# ---------------------------------------------------------------------------
+
+class SSMState(NamedTuple):
+    h: torch.Tensor     # (B, H, P, N) recurrent state, float32 or wider
+    conv: torch.Tensor  # (B, conv_dim, W-1) rolling conv window
+
+
+def init_mamba2(gen, cfg: ArchConfig, dtype, device=None) -> Params:
+    d, d_in = cfg.d_model, cfg.d_inner
+    n, h, w = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv_width
+    conv_dim = d_in + 2 * n
+    f32 = torch.float32
+    return Params(
+        # projects to [z (gate), x, B, C, dt]
+        w_in=_init(gen, (d, 2 * d_in + 2 * n + h), dtype=dtype,
+                   device=device),
+        conv_w=_init(gen, (conv_dim, w), scale=0.5, dtype=dtype,
+                     device=device),
+        conv_b=_zeros((conv_dim,), dtype, gen, device),
+        # the decay, skip and step parameters stay float32
+        a_log=_zeros((h,), f32, gen, device),
+        d_skip=_ones((h,), f32, gen, device),
+        dt_bias=_zeros((h,), f32, gen, device),
+        out_norm=_ones((d_in,), dtype, gen, device),
+        w_out=_init(gen, (d_in, d), dtype=dtype, device=device))
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """Segment sums, masked for ``exp``: a (..., Q) -> (..., Q, Q) with
+    [i, j] = sum_{l=j+1..i} a_l = cs[i] - cs[j] for i >= j and -inf
+    above the diagonal. The mask comes before ``exp``, so nothing above
+    the diagonal overflows and its gradient is zero, not NaN."""
+    q = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((q, q), dtype=torch.bool, device=a.device).tril()
+    return diff.masked_fill(~mask, -torch.inf)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + exp(x)) as ``jax.nn.softplus`` computes it
+    (``logaddexp(x, 0)``), with no switch to the identity for large x as
+    ``F.softplus``'s ``threshold`` makes."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _conv(windows, conv_w, conv_b, dtype):
+    """The prefill's depthwise causal conv: sum_w windows[w] * conv_w[:, w]
+    + conv_b in float32 (or wider), then SiLU, in ``dtype``. ``windows``
+    is the W taps, each (B, S, conv_dim): shifted views, so no (B, S,
+    conv_dim, W) tensor is made."""
+    acc = conv_b.to(torch.promote_types(conv_b.dtype, torch.float32))
+    for i, tap in enumerate(windows):
+        acc = acc + wide(tap) * conv_w[:, i]
+    return F.silu(acc.to(dtype))
+
+
+def mamba2_mix(params, x: torch.Tensor, cfg: ArchConfig, *,
+               state: Optional[SSMState] = None,
+               return_state: bool = False):
+    """Chunked SSD for prefill; the one-step recurrence for decode.
+
+    Branches, as the reference's:
+      - ``state`` given and one token: the rolling conv and one
+        recurrence step;
+      - otherwise the causal conv (padded with zeros, or continuing
+        ``state.conv``) and the chunked SSD over chunks of
+        ``min(ssm_chunk, s)`` tokens (``s`` must divide), from zeros or
+        from ``state.h``: the intra-chunk product, each chunk's end
+        state, and a loop over chunks carrying the state between them.
+
+    Where ``state`` is given its tensors are updated in place (the
+    port's cache convention) and it is returned; else, with
+    ``return_state``, a new ``SSMState``. The four-operand products of
+    the reference are written as pairwise ones; the decays, the states
+    and the recurrence run in float32 (or wider).
+    """
+    b, s, _ = x.shape
+    d_in, n = cfg.d_inner, cfg.ssm_state
+    h, p = cfg.ssm_heads, cfg.ssm_head_dim
+    w = cfg.ssm_conv_width
+
+    zxbcdt = einsum("bsd,de->bse", x, params["w_in"])
+    z, xin, bmat, cmat, dt = torch.split(zxbcdt, [d_in, d_in, n, n, h],
+                                         dim=-1)
+    conv_in = torch.cat([xin, bmat, cmat], dim=-1)         # (B,S,conv_dim)
+    a = -torch.exp(params["a_log"])                        # (H,)
+
+    if state is not None and s == 1:
+        # --- decode: rolling conv + one recurrence step ------------------
+        window = torch.cat([state.conv, conv_in.transpose(1, 2)], -1)
+        acc = (wide(window) * params["conv_w"]).sum(-1) + params["conv_b"]
+        conv_out = F.silu(acc.to(x.dtype))                 # (B, conv_dim)
+        xin_c, b_c, c_c = torch.split(conv_out, [d_in, n, n], dim=-1)
+        xh = wide(xin_c.reshape(b, h, p))
+        dt_s = _softplus(wide(dt[:, 0]) + params["dt_bias"])   # (B, H)
+        decay = torch.exp(dt_s * a)                        # (B, H)
+        dbx = (dt_s[:, :, None] * xh)[..., None] * wide(b_c)[:, None, None]
+        h_new = state.h * decay[:, :, None, None] + dbx    # (B,H,P,N)
+        y = (h_new * wide(c_c)[:, None, None]).sum(-1)     # (B,H,P)
+        y = y + params["d_skip"][None, :, None] * xh
+        y = y.reshape(b, 1, d_in).to(x.dtype)
+        state.conv.copy_(window[:, :, 1:])
+        state.h.copy_(h_new)
+        new_state = state
+    else:
+        # --- prefill: causal conv + chunked SSD --------------------------
+        pad = conv_in.new_zeros((b, w - 1, conv_in.shape[-1])) \
+            if state is None else state.conv.transpose(1, 2)
+        seq = torch.cat([pad, conv_in], dim=1)           # (B,S+W-1,C)
+        conv_out = _conv([seq[:, i:i + s] for i in range(w)],
+                         params["conv_w"], params["conv_b"], x.dtype)
+        xin_c, b_c, c_c = torch.split(conv_out, [d_in, n, n], dim=-1)
+
+        q = min(cfg.ssm_chunk, s)
+        assert s % q == 0, f"seq {s} must be divisible by ssm_chunk {q}"
+        nc = s // q
+        xh = wide(xin_c.reshape(b, nc, q, h, p))
+        bm = wide(b_c.reshape(b, nc, q, n))
+        cm = wide(c_c.reshape(b, nc, q, n))
+        dt_s = _softplus(wide(dt.reshape(b, nc, q, h)) + params["dt_bias"])
+        da_h = (dt_s * a).movedim(-1, 2)                   # (B,NC,H,Q)
+        xdt = xh * dt_s[..., None]                         # x scaled by dt
+
+        # intra-chunk: (C_q . B_s) L[q, s] (dt x)_s
+        lmat = torch.exp(_segsum(da_h))                    # (B,NC,H,Q,Q)
+        cb = einsum("bcqn,bcsn->bcqs", cm, bm)             # (B,NC,Q,Q)
+        y_diag = einsum("bchqs,bcshp->bcqhp", cb[:, :, None] * lmat, xdt)
+
+        # each chunk's end state, and the states entering the chunks
+        cum = torch.cumsum(da_h, dim=-1)                   # (B,NC,H,Q)
+        decay_states = torch.exp(cum[..., -1:] - cum)      # (B,NC,H,Q)
+        chunk_states = einsum(
+            "bcqn,bcqhp->bchpn", bm,
+            xdt * decay_states.transpose(2, 3)[..., None])  # (B,NC,H,P,N)
+        chunk_decay = torch.exp(cum[..., -1])              # (B,NC,H)
+        carry = state.h if state is not None else torch.zeros(
+            (b, h, p, n), dtype=xh.dtype, device=x.device)
+        h_prevs = []
+        for c in range(nc):                 # the reference's lax.scan
+            h_prevs.append(carry)
+            carry = carry * chunk_decay[:, c, :, None, None] \
+                + chunk_states[:, c]
+        h_prev = torch.stack(h_prevs, dim=1)               # (B,NC,H,P,N)
+
+        state_decay = torch.exp(cum)                       # (B,NC,H,Q)
+        y_off = einsum("bcqn,bchpn->bcqhp", cm, h_prev) \
+            * state_decay.transpose(2, 3)[..., None]
+        y = (y_diag + y_off).reshape(b, s, h, p)
+        y = y + params["d_skip"][None, None, :, None] * xh.reshape(b, s, h, p)
+        y = y.reshape(b, s, d_in).to(x.dtype)
+        new_conv = seq[:, -(w - 1):, :].transpose(1, 2)
+        if state is not None:
+            state.conv.copy_(new_conv)
+            state.h.copy_(carry)
+            new_state = state
+        else:
+            new_state = SSMState(h=carry, conv=new_conv.contiguous()) \
+                if return_state else None
+
+    y = rmsnorm(params["out_norm"], y * F.silu(z), cfg.norm_eps)
+    out = einsum("bse,ed->bsd", y, params["w_out"])
+    return out, new_state

@@ -1,23 +1,33 @@
-"""Model factory: init / forward / decode for the decoder families (the
-port of the reference's ``models/model.py``).
+"""Model factory: init / forward / decode for every family (the port of
+the reference's ``models/model.py``).
 
-Families ported:
+Families:
   dense   : [attn -> mlp] x L     (yi, starcoder2, minicpm3 w/ MLA)
   moe     : [attn -> moe] x L     (moonshot)
+  ssm     : [mamba2] x L          (mamba2-780m)
+  hybrid  : mamba2 x L + one shared attn block after every k  (zamba2)
+  encdec  : encoder [attn -> mlp] + decoder with cross-attn (whisper; a
+            stub frontend supplies the frame embeddings)
+  vlm     : projected vision-prefix embeddings + dense decoder
+            (internvl2; a stub frontend supplies the patch embeddings)
 
-The reference's ``ssm``, ``hybrid``, ``encdec`` and ``vlm`` families are
-reached by no registered config; here they raise NotImplementedError
-(ROADMAP Queue 1).
+The registry (``configs.ARCH_IDS``) holds dense and moe configs only;
+the other four families run from configs built by the caller.
 
-Each block runs under the config's ``remat`` policy when autograd records
-it (``_maybe_remat``); decode and ``torch.no_grad()`` run it plainly.
+Each block (hybrid: each group of blocks with its shared block; encdec:
+each encoder block too) runs under the config's ``remat`` policy when
+autograd records it (``_maybe_remat``); decode and ``torch.no_grad()``
+run it plainly.
 
 Parameters are ``layers.Params`` modules named as the reference's dicts:
 ``embed``, ``final_norm``, ``lm_head`` and ``layers.<i>.{ln1, attn.*, ln2,
-mlp.* | moe.*}``. The layers are always a list (the reference's
-unstacked ``scan_layers=False`` layout); ``interop.lm_params_from_numpy``
-loads either of the reference's layouts. Caches are stacked over layers,
-(L, ...), as in the reference, and the cache index is a host integer.
+mlp.* | moe.*, ln_x, xattn.* | ssm.*}``, with ``shared_attn.*``,
+``encoder.<i>.*`` + ``enc_final_norm`` and ``vision_proj`` where the
+family has them. The layers (and the encoder's) are always a list (the
+reference's unstacked ``scan_layers=False`` layout);
+``interop.lm_params_from_numpy`` loads either of the reference's
+layouts. Caches are stacked over layers, (L, ...), as in the reference,
+and the cache index is a host integer.
 """
 from __future__ import annotations
 
@@ -33,7 +43,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.sharding_hooks import constrain, einsum
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+_ATTENTION = ("dense", "moe", "vlm", "encdec")       # attention blocks
+_MAMBA = ("ssm", "hybrid")                            # Mamba2 blocks
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -44,8 +56,7 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 def _check_family(cfg: ArchConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported; the port "
-            f"runs {FAMILIES} (ROADMAP Queue 1)")
+            f"family {cfg.family!r} ({cfg.name}) is not one of {FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -55,6 +66,9 @@ def _check_family(cfg: ArchConfig) -> None:
 def _init_block(gen, cfg: ArchConfig, dtype, device=None) -> L.Params:
     """One decoder block's params."""
     d = cfg.d_model
+    if cfg.family in _MAMBA:
+        return L.Params(ln1=L._ones((d,), dtype, gen, device),
+                        ssm=L.init_mamba2(gen, cfg, dtype, device))
     attn = (L.init_mla(gen, cfg, dtype, device) if cfg.attention == "mla"
             else L.init_gqa(gen, cfg, dtype, device))
     p: Dict[str, Any] = dict(ln1=L._ones((d,), dtype, gen, device),
@@ -64,22 +78,48 @@ def _init_block(gen, cfg: ArchConfig, dtype, device=None) -> L.Params:
         p["moe"] = L.init_moe(gen, cfg, dtype, device)
     else:
         p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, cfg.mlp_type, dtype, device)
+    if cfg.family == "encdec":
+        p["ln_x"] = L._ones((d,), dtype, gen, device)
+        p["xattn"] = L.init_gqa(gen, cfg, dtype, device)
     return L.Params(**p)
+
+
+def _init_attn_mlp(gen, cfg: ArchConfig, dtype, device, d_ff: int,
+                   mlp_type: str) -> L.Params:
+    """An attention + MLP block: Zamba2's shared block and Whisper's
+    encoder blocks."""
+    d = cfg.d_model
+    return L.Params(ln1=L._ones((d,), dtype, gen, device),
+                    attn=L.init_gqa(gen, cfg, dtype, device),
+                    ln2=L._ones((d,), dtype, gen, device),
+                    mlp=L.init_mlp(gen, d, d_ff, mlp_type, dtype, device))
 
 
 def _build(cfg: ArchConfig, gen: Optional[torch.Generator],
            device) -> L.Params:
     _check_family(cfg)
     dtype = _dtype(cfg)
+    d = cfg.d_model
     p: Dict[str, Any] = dict(
-        embed=L._init(gen, (cfg.vocab_size, cfg.d_model), scale=0.02,
+        embed=L._init(gen, (cfg.vocab_size, d), scale=0.02,
                       dtype=dtype, device=device),
-        final_norm=L._ones((cfg.d_model,), dtype, gen, device))
+        final_norm=L._ones((d,), dtype, gen, device))
     if not cfg.tie_embeddings:
-        p["lm_head"] = L._init(gen, (cfg.d_model, cfg.vocab_size),
+        p["lm_head"] = L._init(gen, (d, cfg.vocab_size),
                                dtype=dtype, device=device)
     p["layers"] = nn.ModuleList(_init_block(gen, cfg, dtype, device)
                                 for _ in range(cfg.num_layers))
+    if cfg.family == "hybrid":
+        p["shared_attn"] = _init_attn_mlp(
+            gen, cfg, dtype, device, cfg.shared_attn_d_ff or cfg.d_ff,
+            "swiglu")
+    if cfg.family == "encdec":
+        p["encoder"] = nn.ModuleList(
+            _init_attn_mlp(gen, cfg, dtype, device, cfg.d_ff, cfg.mlp_type)
+            for _ in range(cfg.encoder_layers))
+        p["enc_final_norm"] = L._ones((d,), dtype, gen, device)
+    if cfg.family == "vlm":
+        p["vision_proj"] = L._init(gen, (d, d), dtype=dtype, device=device)
     return L.Params(**p)
 
 
@@ -87,9 +127,11 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
                 device="cuda") -> L.Params:
     """Random weights from the reference's distributions: normal x
     1/sqrt(shape[0]) (``embed`` and ``router`` x 0.02, ``wo`` x
-    1/sqrt(h*k)), norms at one. Drawn by a generator on ``device`` seeded
-    with ``seed``, so the draws are not the reference's (``jax.random``);
-    parity goes through ``interop.lm_params_from_numpy``."""
+    1/sqrt(h*k), ``conv_w`` x 0.5), norms and ``d_skip`` at one,
+    ``conv_b``, ``a_log`` and ``dt_bias`` at zero. Drawn by a generator
+    on ``device`` seeded with ``seed``, so the draws are not the
+    reference's (``jax.random``); parity goes through
+    ``interop.lm_params_from_numpy``."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -106,37 +148,66 @@ def empty_params(cfg: ArchConfig, *, device="cuda") -> L.Params:
 # ---------------------------------------------------------------------------
 
 class DecodeCache(NamedTuple):
-    """The reference's union cache. Only ``kv`` (stacked ``KVCache`` or
-    ``MLACache``, (L, ...)) is used by the ported families; the other
-    cache fields stay None."""
+    """The reference's union cache; a family's unused fields are None."""
 
-    kv: Optional[Any]
-    ssm: Optional[Any]
-    shared_kv: Optional[Any]
-    enc_out: Optional[torch.Tensor]
-    cross_kv: Optional[Any]
+    kv: Optional[Any]          # stacked KVCache or MLACache (L, ...)
+    ssm: Optional[Any]         # stacked SSMState (L, ...)
+    shared_kv: Optional[Any]   # KVCache (L // shared_attn_every, ...)
+    enc_out: Optional[torch.Tensor]   # (B, enc_seq, D) encoder output
+    cross_kv: Optional[Any]    # KVCache (L, B, G, enc_seq, K) precomputed
     index: int                 # next write position, one for the batch
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
-               device="cuda") -> DecodeCache:
+               enc_out: Optional[torch.Tensor] = None,
+               with_cross_kv: bool = True, device="cuda") -> DecodeCache:
+    """Zeroed decode buffers for ``cfg``'s family, as the reference's: KV
+    (or MLA latents) for the attention families, the SSM state and conv
+    window for ssm / hybrid, the shared block's KV for each of hybrid's
+    groups, and encdec's cross K/V (``with_cross_kv``) over
+    ``encoder_seq`` positions. ``enc_out`` is carried as given. The SSM
+    state ``h`` is float32 (or the model's dtype where that is wider)."""
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg)
     n_l = cfg.num_layers
-    if cfg.attention == "mla":
-        kv = L.MLACache(
-            c_kv=torch.zeros((n_l, batch, max_seq, cfg.kv_lora_rank),
-                             dtype=dtype, device=dev),
-            k_rope=torch.zeros((n_l, batch, max_seq, cfg.rope_head_dim),
-                               dtype=dtype, device=dev))
-    else:
-        shape = (n_l, batch, cfg.num_kv_heads, max_seq,
-                 cfg.resolved_head_dim)
-        kv = L.KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
-                       v=torch.zeros(shape, dtype=dtype, device=dev))
-    return DecodeCache(kv=kv, ssm=None, shared_kv=None, enc_out=None,
-                       cross_kv=None, index=0)
+    kv = ssm = shared = cross = None
+
+    def kv_buf(n, seq):
+        shape = (n, batch, cfg.num_kv_heads, seq, cfg.resolved_head_dim)
+        return L.KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
+                         v=torch.zeros(shape, dtype=dtype, device=dev))
+
+    if cfg.family == "encdec" and with_cross_kv:
+        cross = kv_buf(n_l, cfg.encoder_seq)
+    if cfg.family in _ATTENTION:
+        if cfg.attention == "mla":
+            kv = L.MLACache(
+                c_kv=torch.zeros((n_l, batch, max_seq, cfg.kv_lora_rank),
+                                 dtype=dtype, device=dev),
+                k_rope=torch.zeros((n_l, batch, max_seq, cfg.rope_head_dim),
+                                   dtype=dtype, device=dev))
+        else:
+            kv = kv_buf(n_l, max_seq)
+    if cfg.family in _MAMBA:
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+        ssm = L.SSMState(
+            h=torch.zeros((n_l, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                           cfg.ssm_state),
+                          dtype=torch.promote_types(dtype, torch.float32),
+                          device=dev),
+            conv=torch.zeros((n_l, batch, conv_dim, cfg.ssm_conv_width - 1),
+                             dtype=dtype, device=dev))
+    if cfg.family == "hybrid":
+        shared = kv_buf(cfg.num_layers // cfg.shared_attn_every, max_seq)
+    return DecodeCache(kv=kv, ssm=ssm, shared_kv=shared, enc_out=enc_out,
+                       cross_kv=cross, index=0)
+
+
+def _layer(cache, i: int):
+    """Entry ``i`` of a cache stacked on axis 0 (views: writes into it
+    land in the stack), or None."""
+    return None if cache is None else type(cache)(*(a[i] for a in cache))
 
 
 # ---------------------------------------------------------------------------
@@ -144,21 +215,52 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
 # ---------------------------------------------------------------------------
 
 def _apply_block(p, x, positions, cfg: ArchConfig, *, cache=None,
-                 cache_index=None, return_cache=False):
-    """One decoder block. Returns (x, new_kv, aux_loss)."""
+                 cache_index=None, return_cache=False, enc_out=None,
+                 ssm_state=None, cross_kv=None):
+    """One decoder block. Returns (x, new_kv, new_ssm, aux_loss).
+
+    encdec's cross-attention takes the precomputed ``cross_kv`` where
+    given, else projects ``enc_out``; a Mamba2 block continues
+    ``ssm_state`` where given (in place)."""
     x = constrain(x, "residual")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if cfg.family in _MAMBA:
+        y, new_ssm = L.mamba2_mix(
+            p["ssm"], h, cfg, state=ssm_state,
+            return_state=return_cache or ssm_state is not None)
+        return x + y, None, new_ssm, aux
     attend = L.mla_attention if cfg.attention == "mla" else L.gqa_attention
     y, new_kv = attend(p["attn"], h, positions, cfg, cache=cache,
                        cache_index=cache_index, return_cache=return_cache)
     x = x + y
+    if cfg.family == "encdec":
+        h = L.rmsnorm(p["ln_x"], x, cfg.norm_eps)
+        if cross_kv is not None:
+            y, _ = L.gqa_attention(p["xattn"], h, positions, cfg,
+                                   causal=False, static_kv=cross_kv)
+        else:
+            y, _ = L.gqa_attention(p["xattn"], h, positions, cfg,
+                                   causal=False, kv_x=enc_out)
+        x = x + y
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     if cfg.family == "moe":
         y, aux = L.moe_block(p["moe"], h, cfg)
     else:
         y = L.mlp(p["mlp"], h, cfg.mlp_type)
-    return x + y, new_kv, aux
+    return x + y, new_kv, None, aux
+
+
+def _apply_shared_attn(p, x, positions, cfg: ArchConfig, *, cache=None,
+                       cache_index=None, return_cache=False):
+    """Zamba2's shared attention + SwiGLU block. Returns (x, new_kv)."""
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    y, new_kv = L.gqa_attention(p["attn"], h, positions, cfg, cache=cache,
+                                cache_index=cache_index,
+                                return_cache=return_cache)
+    x = x + y
+    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + L.mlp(p["mlp"], h, "swiglu"), new_kv
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -195,22 +297,109 @@ def _stack(caches):
     return type(caches[0])(*(torch.stack(xs) for xs in zip(*caches)))
 
 
+def _records(params, x) -> bool:
+    """Whether autograd records this forward (then blocks run under the
+    config's remat policy)."""
+    return torch.is_grad_enabled() and (x.requires_grad or any(
+        p.requires_grad for p in params.parameters()))
+
+
 def _run_layers(params, x, positions, cfg: ArchConfig, *,
-                build_cache=False):
-    """Run the decoder stack. Returns (x, stacked kv caches or None,
-    total aux loss)."""
+                build_cache=False, enc_out=None):
+    """Run the decoder stack. Returns (x, stacked kv caches, stacked SSM
+    states, total aux loss, stacked cross K/V); the caches are None
+    unless ``build_cache``."""
+    if cfg.family == "hybrid":
+        return _run_layers_hybrid(params, x, positions, cfg,
+                                  build_cache=build_cache)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    kvs = []
+    kvs, ssms, cross = [], [], []
     block = _apply_block
-    if torch.is_grad_enabled() and (x.requires_grad or any(
-            p.requires_grad for p in params.parameters())):
+    if _records(params, x):
         block = _maybe_remat(_apply_block, cfg)
     for lp in params["layers"]:
-        x, kv, a = block(lp, x, positions, cfg, return_cache=build_cache)
+        x, kv, ssm, a = block(lp, x, positions, cfg,
+                              return_cache=build_cache, enc_out=enc_out)
         aux = aux + a
         if kv is not None:
             kvs.append(kv)
-    return x, (_stack(kvs) if kvs else None), aux
+        if ssm is not None:
+            ssms.append(ssm)
+        if build_cache and cfg.family == "encdec":
+            # this layer's cross-attention K/V, projected once for decode
+            cross.append(L.KVCache(
+                einsum("btd,dgk->bgtk", enc_out, lp["xattn"]["wk"]),
+                einsum("btd,dgk->bgtk", enc_out, lp["xattn"]["wv"])))
+    return (x, _stack(kvs) if kvs else None, _stack(ssms) if ssms else None,
+            aux, _stack(cross) if cross else None)
+
+
+def _run_layers_hybrid(params, x, positions, cfg: ArchConfig, *,
+                       build_cache=False):
+    """Zamba2: groups of ``shared_attn_every`` Mamba2 layers, each
+    followed by the shared attention block (the same parameters every
+    time), then the layers past the last full group. Each group runs
+    under the remat policy where autograd records, as the reference's
+    group body; the tail does not.
+
+    Under ``build_cache`` it returns the shared block's K/V of each
+    group as the ``kv`` (the reference's layout: ``forward`` puts it
+    under ``kv`` and leaves ``shared_kv`` None, which decode reads, so
+    prefill -> decode is not chained for this family)."""
+    k = cfg.shared_attn_every
+    n_groups = cfg.num_layers // k
+    layers = list(params["layers"])
+    shared = params["shared_attn"]
+
+    def group(h, lps):
+        states = []
+        for lp in lps:
+            h, _, st, _ = _apply_block(lp, h, positions, cfg,
+                                       return_cache=build_cache)
+            states.append(st)
+        h, kv = _apply_shared_attn(shared, h, positions, cfg,
+                                   return_cache=build_cache)
+        return h, kv, states
+
+    if _records(params, x):
+        group = _maybe_remat(group, cfg)
+    kvs, ssms = [], []
+    for g in range(n_groups):
+        x, kv, states = group(x, layers[g * k:(g + 1) * k])
+        kvs.append(kv)
+        ssms.extend(states)
+    for lp in layers[n_groups * k:]:
+        x, _, st, _ = _apply_block(lp, x, positions, cfg,
+                                   return_cache=build_cache)
+        ssms.append(st)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if not build_cache:
+        return x, None, None, aux, None
+    return x, _stack(kvs) if kvs else None, _stack(ssms), aux, None
+
+
+def _encode(params, frames, cfg: ArchConfig):
+    """The encoder over the stub frontend's frame embeddings: blocks of
+    non-causal self-attention (RoPE over the frame positions) and MLP,
+    each under the remat policy where autograd records, then
+    ``enc_final_norm``."""
+    b, t, _ = frames.shape
+    pos = torch.arange(t, device=frames.device)[None].expand(b, t)
+
+    def body(h, lp):
+        y, _ = L.gqa_attention(lp["attn"], L.rmsnorm(lp["ln1"], h,
+                                                     cfg.norm_eps),
+                               pos, cfg, causal=False)
+        h = h + y
+        return h + L.mlp(lp["mlp"], L.rmsnorm(lp["ln2"], h, cfg.norm_eps),
+                         cfg.mlp_type)
+
+    if _records(params, frames):
+        body = _maybe_remat(body, cfg)
+    x = frames
+    for lp in params["encoder"]:
+        x = body(x, lp)
+    return L.rmsnorm(params["enc_final_norm"], x, cfg.norm_eps)
 
 
 def _logits(params, x, cfg: ArchConfig):
@@ -221,21 +410,40 @@ def _logits(params, x, cfg: ArchConfig):
 
 def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             *, build_cache: bool = False):
-    """Full forward over a token batch ``{"tokens": (B, S) int}``.
+    """Full forward over a token batch ``{"tokens": (B, S) int}``, with
+    ``"frames"`` (B, encoder_seq, D) for encdec and ``"vision"`` (B, V,
+    D) for vlm (the stub frontends' embeddings).
+
+    vlm prepends the projected vision embeddings; the logits cover the
+    tokens only, and the cache's index is S + V. encdec's cache carries
+    the encoder output and every layer's cross K/V.
 
     Returns (logits (B, S, V), aux_loss, cache or None).
     """
     _check_family(cfg)
+    dtype = _dtype(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = L.embed(params["embed"], tokens).to(_dtype(cfg))
-    positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    x, kv, aux = _run_layers(params, x, positions, cfg,
-                             build_cache=build_cache)
+    x = L.embed(params["embed"], tokens).to(dtype)
+    enc_out, offset = None, 0
+    if cfg.family == "encdec":
+        enc_out = _encode(params, batch["frames"].to(dtype), cfg)
+    if cfg.family == "vlm":
+        vis = einsum("bvd,de->bve", batch["vision"].to(dtype),
+                     params["vision_proj"])
+        x = torch.cat([vis, x], dim=1)
+        offset = vis.shape[1]
+    positions = torch.arange(x.shape[1], device=x.device)[None].expand(
+        b, x.shape[1])
+    x, kv, ssm, aux, cross = _run_layers(params, x, positions, cfg,
+                                         build_cache=build_cache,
+                                         enc_out=enc_out)
     cache = None
     if build_cache:
-        cache = DecodeCache(kv=kv, ssm=None, shared_kv=None, enc_out=None,
-                            cross_kv=None, index=s)
+        cache = DecodeCache(kv=kv, ssm=ssm, shared_kv=None, enc_out=enc_out,
+                            cross_kv=cross, index=s + offset)
+    if offset:                          # vlm: logits for the tokens only
+        x = x[:, offset:]
     return _logits(params, x, cfg), aux, cache
 
 
@@ -247,19 +455,43 @@ def decode_step(params, tokens: torch.Tensor, cache: DecodeCache,
                 cfg: ArchConfig):
     """One-token decode: tokens (B, 1) -> (logits (B, 1, V), new cache).
 
-    Writes each layer's new K/V into ``cache``'s tensors in place at
-    ``cache.index`` and returns the cache with the index advanced. As in
-    the reference, a write at or past ``max_seq`` is dropped and the step
-    attends over the whole cache.
+    Writes each layer's new K/V, SSM state and conv window into
+    ``cache``'s tensors in place at ``cache.index`` and returns the cache
+    with the index advanced. As in the reference, a K/V write at or past
+    ``max_seq`` is dropped and the step attends over the whole cache.
+    encdec attends over ``cache.cross_kv`` where it is set, else over
+    ``cache.enc_out`` projected anew.
     """
     _check_family(cfg)
     b = tokens.shape[0]
     x = L.embed(params["embed"], tokens).to(_dtype(cfg))
     idx = cache.index
     positions = torch.full((b, 1), idx, dtype=torch.int64, device=x.device)
-    kv = cache.kv
-    for i, lp in enumerate(params["layers"]):
-        layer_kv = type(kv)(*(a[i] for a in kv))
-        x, _, _ = _apply_block(lp, x, positions, cfg, cache=layer_kv,
-                               cache_index=idx)
+    if cfg.family == "hybrid":
+        x = _decode_hybrid(params, x, positions, cache, cfg)
+    else:
+        for i, lp in enumerate(params["layers"]):
+            x, _, _, _ = _apply_block(
+                lp, x, positions, cfg, cache=_layer(cache.kv, i),
+                cache_index=idx, enc_out=cache.enc_out,
+                ssm_state=_layer(cache.ssm, i),
+                cross_kv=_layer(cache.cross_kv, i))
     return _logits(params, x, cfg), cache._replace(index=idx + 1)
+
+
+def _decode_hybrid(params, x, positions, cache: DecodeCache, cfg):
+    """Zamba2's decode: each group's Mamba2 layers on their states, then
+    the shared block on that group's entry of ``cache.shared_kv``; then
+    the tail's layers."""
+    k = cfg.shared_attn_every
+    n_groups = cfg.num_layers // k
+    layers = list(params["layers"])
+    for i, lp in enumerate(layers):
+        x, _, _, _ = _apply_block(lp, x, positions, cfg,
+                                  ssm_state=_layer(cache.ssm, i))
+        if i < n_groups * k and (i + 1) % k == 0:
+            x, _ = _apply_shared_attn(
+                params["shared_attn"], x, positions, cfg,
+                cache=_layer(cache.shared_kv, i // k),
+                cache_index=cache.index)
+    return x

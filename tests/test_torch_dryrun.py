@@ -23,10 +23,15 @@ Held here:
     ``lsgaussian`` is an error in both;
   - on a (1, 1) mesh the per-device FLOPs equal ``FlopCounterMode``'s
     count of the same step run unsharded on real tensors, exactly;
-  - a hand-built DTensor program's collectives are counted exactly.
+  - a hand-built DTensor program's collectives are counted exactly;
+  - the reduced encdec and vlm configs (``_torch_family_configs``) get
+    the reference's input specs (frames, vision) and decode_32k cell
+    arguments (parameters, tokens, the cache with its ``enc_out``
+    stand-in), as shapes and dtypes.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -35,7 +40,10 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 import _torch_dist_workers as W
+from _torch_family_configs import FAMILY_CONFIGS
 from repro_torch.configs import ARCH_IDS, get_config, get_shape
+from repro_torch.configs.base import ArchConfig
+from repro_torch.launch import dryrun as TD
 from repro_torch.models import model as TM
 from repro_torch.train import optimizer as TO
 from repro_torch.train import train_step as TT
@@ -199,3 +207,47 @@ def test_collectives_of_a_known_program(runs):
                       "collective-permute": 0.0}
     assert counts == {"all-gather": 1, "all-reduce": 1, "reduce-scatter": 1,
                       "all-to-all": 0, "collective-permute": 0}
+
+
+def _dotted(path):
+    """A reference tree path (``jax.tree_util.keystr``) as the port's
+    dotted name: "['encoder'][0]['attn']['wk']" -> "encoder.0.attn.wk"."""
+    return ".".join(re.findall(r"[A-Za-z_0-9]+", path))
+
+
+def _specs(named):
+    return {name: [list(t.shape), str(t.dtype).replace("torch.", "")]
+            for name, t in named}
+
+
+def test_family_inputs_and_decode_args_equal_the_reference(runs):
+    """encdec's frames and vlm's vision inputs, and the decode_32k cell's
+    (params, tokens, cache) before placement, against the reference's
+    ``build_cell`` arguments; the cache index is the port's host int."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    _, ref = runs
+    shape = get_shape("decode_32k")
+    for name, want in ref["families"].items():
+        cfg = ArchConfig(**FAMILY_CONFIGS[name]).reduced()
+        for decode in (False, True):
+            got = _specs(TD.input_specs(cfg, shape,
+                                        for_decode=decode).items())
+            assert got == {_dotted(k): v for k, v in
+                           want["inputs"][str(decode)].items()}, \
+                (name, decode)
+        with FakeTensorMode():
+            params = TM.init_params(cfg, device="cpu")
+            cache = TD.decode_cache(cfg, shape, "cpu")
+        tokens = TD.input_specs(cfg, shape, for_decode=True)["tokens"]
+        assert _specs(params.named_parameters()) == {
+            _dotted(k): v for k, v in want["params"].items()}, name
+        assert _specs([("", tokens)]) == want["tokens"]
+        leaves = []
+        for field, v in cache._asdict().items():
+            if isinstance(v, tuple):
+                leaves += [(f"{field}.{k}", t) for k, t in v._asdict().items()]
+            elif isinstance(v, torch.Tensor):
+                leaves.append((field, v))
+        assert cache.index == 0
+        assert _specs(leaves) == {_dotted(k): v for k, v in
+                                  want["cache"].items() if k != "['index']"}

@@ -333,15 +333,6 @@ def test_cache_write_past_the_end_raises():
                     np.testing.assert_array_equal(a.numpy(), np.asarray(b_))
 
 
-def test_cross_attention_is_not_ported():
-    _, tcfg = _cfgs("yi-9b")
-    params = TL.init_gqa(torch.Generator().manual_seed(0), tcfg,
-                         torch.float32)
-    x = torch.zeros(1, 2, tcfg.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        TL.gqa_attention(params, x, torch.zeros(1, 2), tcfg, kv_x=x)
-
-
 # --- MLP / MoE ---------------------------------------------------------------
 
 @pytest.mark.parametrize("mlp_type", ["swiglu", "gelu"])

@@ -237,11 +237,13 @@ def test_init_cache_layout_equals_reference():
         assert tc.index == int(jc.index) == 0
 
 
-@pytest.mark.parametrize("family", ["ssm", "hybrid", "encdec", "vlm"])
-def test_unported_families_raise(family):
-    cfg = dataclasses.replace(tget("yi-9b").reduced(), family=family)
+def test_unknown_family_raises():
+    """Every family of the reference runs (``test_torch_lm_families.py``);
+    a family that is none of them is refused."""
+    cfg = dataclasses.replace(tget("yi-9b").reduced(), family="rnn")
     for call in (lambda: TM.init_params(cfg, device="cpu"),
                  lambda: TM.init_cache(cfg, 1, 8, device="cpu"),
-                 lambda: TM.forward(None, {"tokens": torch.ones(1, 2)}, cfg)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+                 lambda: TM.forward(None, {"tokens": torch.ones(1, 2)}, cfg),
+                 lambda: TM.decode_step(None, torch.ones(1, 1), None, cfg)):
+        with pytest.raises(NotImplementedError, match="'rnn'"):
             call()

@@ -1,5 +1,6 @@
 """The port stands alone: no JAX and nothing of ``repro`` in
-``repro_torch`` or ``chip_smoke.py``, kernel modules import without
+``repro_torch``, ``chip_smoke.py`` or the family configs it shares with
+the tests (``tests/_torch_family_configs.py``), kernel modules import without
 nvcc or triton, and entry points left at their default device refuse to
 run without a GPU."""
 import ast
@@ -51,7 +52,8 @@ def _imports(path):
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py"],
+                         [ROOT / "chip_smoke.py",
+                          ROOT / "tests" / "_torch_family_configs.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     for name in _imports(path):
