@@ -283,23 +283,17 @@ def max_err(a, b):
     return float((a - b).abs().max()) if a.numel() else 0.0
 
 
-def kernel_counts():
-    """Every kernel wrapper's launch count, by kernel name."""
-    from repro_torch.kernels import (ldu_fill, preprocess, raster_plan,
-                                     raster_tile, tile_sort)
-    return {"raster_tile": raster_tile.raster_tile,
-            "raster_plan_fused": raster_plan.raster_plan_fused,
-            "preprocess_geom": preprocess.preprocess_geom,
-            "tile_sort": tile_sort.tile_sort, "ldu_fill": ldu_fill.ldu_fill}
+KERNELS = ("raster_tile", "raster_plan_fused", "preprocess_geom",
+           "tile_sort", "ldu_fill")
 
 
-def reset_counts():
-    for fn in kernel_counts().values():
-        fn.launches = 0
-
-
-def read_counts():
-    return {k: fn.launches for k, fn in kernel_counts().items()}
+def launch_counts(since=None):
+    """Every kernel's launches in this process, by kernel name, less
+    ``since`` (an earlier reading)."""
+    from repro_torch.obs.metrics import kernel_launches
+    since = since or {}
+    return {k: int(kernel_launches(k).value) - since.get(k, 0)
+            for k in KERNELS}
 
 
 def theoretical_occupancy(regs, threads, smem):
@@ -919,7 +913,7 @@ def phase_tile_sort_kernel(args, flush):
     # version runs on CPU copies of the inputs: that is the order the CPU
     # tests hold against the reference's jnp.argsort(stable=True); the
     # plain version on the card is printed beside it.
-    tile_sort.tile_sort.launches = 0
+    base = launch_counts()
     cases = [(33, 100), (5, 1), (4, 16), (7, 1000), (64, 4096), (9, 257),
              (2, 16384)]
     for seed, (t, k) in enumerate(cases):
@@ -940,7 +934,7 @@ def phase_tile_sort_kernel(args, flush):
               and torch.equal(got[1].cpu(), want[1]),
               f"({t}, {k}) rows with ties, NaN, -0, +0, +-inf: the wrapper's "
               "kernel equals the stable plain sort bit for bit")
-    check(tile_sort.tile_sort.launches == len(cases),
+    check(launch_counts(base)["tile_sort"] == len(cases),
           f"the wrapper launched the kernel once per call ({len(cases)})")
 
     depth, counts = args[4], args[6]
@@ -957,7 +951,6 @@ def phase_tile_sort_kernel(args, flush):
     check(same_bits(got[0], want[0]) and torch.equal(got[1], want[1]),
           f"({t}, {k}) depth keys with ids: kernel equals the stable "
           "plain sort exactly")
-    tile_sort.tile_sort.launches = 0
 
     def library():
         order = torch.sort(keys, dim=1, stable=True)
@@ -1074,7 +1067,7 @@ def phase_ldu_kernel(key_bins, warped, flush, report):
           flush=True)
     print_occupancy("ldu_fill_kernel", ptxas_lines(report, "ldu_fill_kernel"),
                     32, kl.smem_bytes(32))
-    kl.ldu_fill.launches = 0
+    base = launch_counts()
     cases = ldu_cases(key_bins, warped)
     for name, wl, act, b, mode in cases:
         got = kl.ldu_fill(wl, act, b, mode)
@@ -1091,9 +1084,8 @@ def phase_ldu_kernel(key_bins, warped, flush, report):
               f"{used} blocks used{extra}", flush=True)
         check(got.dtype == torch.int32 and torch.equal(got, want),
               f"{name}: block_of equals the plain version exactly")
-    check(kl.ldu_fill.launches == len(cases),
+    check(launch_counts(base)["ldu_fill"] == len(cases),
           f"the wrapper launched the kernel once per call ({len(cases)})")
-    kl.ldu_fill.launches = 0
     from repro_torch.core import plan
     tplan = key_bins[0]
     torch.cuda.synchronize()
@@ -1160,13 +1152,13 @@ def phase_slice(scene, cam, poses, cfg):
           "1.6e10 entries per plane at that size", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    base = launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = engine.render_trajectory(scene, cam, poses, cfg)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = read_counts()
+    launches = launch_counts(base)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"  trajectory (first run, with first-use costs): "
           f"{total_s * 1e3:.1f} ms for {N_FRAMES} frames, "
@@ -1580,14 +1572,14 @@ def phase_serve(cam, cfg):
     # sessions rendered how many frames at which R.
     sessions, chunks = record_serving(srv, reg)
     warm_s = srv.warmup()
-    reset_counts()
+    base = launch_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     report = srv.run(traffic, max_rounds=200)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = read_counts()
+    launches = launch_counts(base)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"  run: {total_s:.3f} s, {report['rounds']} rounds "
           f"({report['busy_rounds']} busy), {report['frames']} frames, "
@@ -1745,12 +1737,12 @@ def phase_split(cam, cfg):
 
     def run(mesh):
         fn = build_render_fn(cam, split_cfg, mesh, multi_scene=True)
-        reset_counts()
+        base = launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn(*args)
         torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3, read_counts()
+        return out, (time.perf_counter() - t0) * 1e3, launch_counts(base)
 
     run(None)                     # first use: library loads, allocations
     plain, plain_ms, plain_n = run(None)
@@ -1776,13 +1768,13 @@ def phase_split(cam, cfg):
         srv = StreamServer(reg, cam, scfg_cfg, scfg, device=card,
                            devices=devices)
         sessions, chunks = record_serving(srv, reg)
-        reset_counts()
+        base = launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         report = srv.run(serve_traffic(), max_rounds=200)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n = read_counts()
+        n = launch_counts(base)
         want = 2 if devices else 1
         where = "(cuda:0,) * 2" if devices else "the card's own devices"
         check(report["streams_finished"] == 6 and not srv.manager.sessions

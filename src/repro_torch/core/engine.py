@@ -34,7 +34,23 @@ from repro_torch.core.pipeline import (FrameRecord, FrameState,
                                        TrajectoryResult, contrib_enabled,
                                        render_full_frame,
                                        render_sparse_frame, stack_fields)
+from repro_torch.obs.metrics import host_syncs
 from repro_torch.obs.trace import annotate
+
+# Where the engine makes the host wait for the device: host values copied
+# to it (counted only where they are not already there) and per-stream
+# values read back from it.
+_SYNC_INIT = host_syncs("engine.init_carry")
+_SYNC_STACK = host_syncs("engine.stack_carries")
+_SYNC_UNSTACK = host_syncs("engine.unstack_carries")
+_SYNC_BLANK = host_syncs("engine.blank_record")
+_SYNC_STREAMS = host_syncs("engine.render_streams")
+
+
+def _copies_to(x, dev: torch.device) -> bool:
+    """Does putting ``x`` on ``dev`` copy it there (it is not a tensor on
+    ``dev`` already)?"""
+    return not (isinstance(x, torch.Tensor) and x.device == dev)
 
 
 class EngineCarry(NamedTuple):
@@ -79,6 +95,8 @@ def init_carry(cam: Camera, pose: torch.Tensor,
     ``n_gaussians`` sizes the carried prior when
     ``pipeline.contrib_enabled(cfg)``.
     """
+    if _copies_to(pose, cam.device):
+        _SYNC_INIT.inc()
     return EngineCarry(state=_zero_state(cam, n_gaussians),
                        prev_pose=torch.as_tensor(pose, dtype=torch.float32,
                                                  device=cam.device),
@@ -88,6 +106,7 @@ def init_carry(cam: Camera, pose: torch.Tensor,
 def stack_carries(carries: Sequence[EngineCarry]) -> EngineCarry:
     """Per-stream carries -> one carry with fields (B, ...)."""
     dev = carries[0].prev_pose.device
+    _SYNC_STACK.inc()
     return EngineCarry(
         state=stack_fields([c.state for c in carries]),
         prev_pose=torch.stack([c.prev_pose for c in carries]),
@@ -98,6 +117,7 @@ def stack_carries(carries: Sequence[EngineCarry]) -> EngineCarry:
 def unstack_carries(carries: EngineCarry) -> List[EngineCarry]:
     """A stacked carry -> one carry per stream (views, host ``step``)."""
     steps = carries.step.tolist()
+    _SYNC_UNSTACK.inc()
     return [EngineCarry(
         state=FrameState(*(None if f is None else f[i]
                            for f in carries.state)),
@@ -121,6 +141,7 @@ def blank_record(cam: Camera, cfg: RenderConfig,
     dev = cam.device
     i32 = dict(dtype=torch.int32, device=dev)
     zero = torch.zeros((), **i32)
+    _SYNC_BLANK.inc()
     lane_contrib = None
     if contrib_enabled(cfg):
         lane_contrib = torch.zeros((t, min(cfg.capacity, n_gaussians)),
@@ -138,19 +159,26 @@ def blank_record(cam: Camera, cfg: RenderConfig,
         culled_pairs=zero, lane_contrib=lane_contrib)
 
 
-def make_frame_step(scene, cam: Camera, cfg: RenderConfig, phase: int = 0):
-    """Build ``frame_step(carry, pose) -> (new_carry, (rgb, record))``."""
+def make_frame_step(scene, cam: Camera, cfg: RenderConfig, phase: int = 0,
+                    stream: int = 0):
+    """Build ``frame_step(carry, pose) -> (new_carry, (rgb, record))``.
+
+    ``stream`` names the stream in the frame's span (with the carry's
+    step and whether the frame is a key frame), so the host trace's
+    spans of one frame share an identifier.
+    """
 
     def frame_step(carry: EngineCarry, pose: torch.Tensor):
         tgt_cam = cam.with_pose(pose)
         is_full = carry.step == 0 or (carry.step + phase) % cfg.window == 0
+        args = {"stream": stream, "step": carry.step, "key": is_full}
         if is_full:
-            with annotate("repro.frame/full"):
+            with annotate("repro.frame/full", args):
                 out, new_state, rec = render_full_frame(
                     scene, tgt_cam, cfg, frame_idx=carry.step)
             rgb = out.rgb
         else:
-            with annotate("repro.frame/sparse"):
+            with annotate("repro.frame/sparse", args):
                 rgb, new_state, rec = render_sparse_frame(
                     scene, cam.with_pose(carry.prev_pose), tgt_cam,
                     carry.state, cfg)
@@ -187,18 +215,20 @@ def render_trajectory(scene, cam: Camera, poses: torch.Tensor,
 
 
 def stream_scan(scene, cam: Camera, poses: torch.Tensor, count: int,
-                phase: int, cfg: RenderConfig, carry: EngineCarry):
+                phase: int, cfg: RenderConfig, carry: EngineCarry,
+                stream: int = 0):
     """Masked, resumable single-stream loop — the serving primitive.
 
     Renders frames ``0 .. count-1`` of ``poses`` (F, 4, 4) starting from
     ``carry`` (``init_carry`` for a fresh stream). Frames at or past
     ``count`` are not rendered: they read as zeros, get ``blank_record``,
     and the carry passes through untouched. Returns ``(carry_end,
-    (frames (F, H, W, 3), records, frame_active (F,)))``.
+    (frames (F, H, W, 3), records, frame_active (F,)))``. ``stream``
+    names the stream in the frames' spans.
     """
     f = poses.shape[0]
     count = max(0, min(int(count), f))
-    step_fn = make_frame_step(scene, cam, cfg, int(phase))
+    step_fn = make_frame_step(scene, cam, cfg, int(phase), stream)
     frames = torch.zeros((f, cam.height, cam.width, 3), dtype=torch.float32,
                          device=cam.device)
     records = []
@@ -247,6 +277,10 @@ def render_streams(scene, cam: Camera, poses_batch: torch.Tensor,
     scenes = None if slot_scene is None else list(scene)
     first = scene if scenes is None else scenes[0]
     n = first.means.shape[0] if contrib_enabled(cfg) else None
+    # Given phases and counts are copied to the device unless there, and
+    # read back to the host below: up to two waits each.
+    _SYNC_STREAMS.inc(2 + (phases is not None and _copies_to(phases, dev))
+                      + (counts is not None and _copies_to(counts, dev)))
     phases = stream_phases(b, cfg.window, device=dev) if phases is None \
         else torch.as_tensor(phases, dtype=torch.int32).to(dev)
     counts = torch.full((b,), f, dtype=torch.int32, device=dev) \
@@ -255,6 +289,9 @@ def render_streams(scene, cam: Camera, poses_batch: torch.Tensor,
     if carries is None:
         carries = init_stream_carries(cam, poses_batch, n)
     starts = unstack_carries(carries)
+    # A caller keeps slot_scene on either side; only a GPU's read waits.
+    if isinstance(slot_scene, torch.Tensor) and slot_scene.is_cuda:
+        _SYNC_STREAMS.inc()
     slot_ids = [0] * b if slot_scene is None \
         else torch.as_tensor(slot_scene).tolist()
     ends, frames, records, active = [], [], [], []
@@ -263,7 +300,7 @@ def render_streams(scene, cam: Camera, poses_batch: torch.Tensor,
         sc = scene if scenes is None else scenes[slot_ids[i]]
         with annotate(f"repro.stream/{i}"):
             end, (fr, rec, act) = stream_scan(sc, cam, poses_batch[i], count,
-                                              phase, cfg, starts[i])
+                                              phase, cfg, starts[i], i)
         ends.append(end)
         frames.append(fr)
         records.append(rec.stacked)

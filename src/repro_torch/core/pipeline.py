@@ -26,7 +26,14 @@ from repro_torch.core.camera import TILE, Camera
 from repro_torch.core.plan import TilePlan
 from repro_torch.core.projection import preprocess
 from repro_torch.core.raster import RenderOutput, render_plan_slots, untile
+from repro_torch.obs.metrics import host_syncs
 from repro_torch.obs.trace import annotate
+
+# Where a frame makes the host wait for the device: the active slots'
+# count, and the key-frame flag and frame index copied to the device.
+_SYNC_ACTIVE = host_syncs("pipeline.intersect_and_bin")
+_SYNC_IS_FULL = host_syncs("pipeline.plan_record")
+_SYNC_FRAME_IDX = host_syncs("pipeline.render_full_frame")
 
 # Gaussian x slot pairs per intersect/bin block: the (N, R) masks and the
 # (R, N) selection keys are built a block of active slots at a time, which
@@ -141,6 +148,7 @@ def intersect_and_bin(proj, slots, plan: TilePlan, cfg: RenderConfig,
     culled_pairs = torch.zeros((), **i32)
     slot_active = plan.slot_active.clone()
     active = torch.nonzero(plan.slot_active).squeeze(1)
+    _SYNC_ACTIVE.inc()
     rows = max(1, PAIR_BLOCK // max(n, 1))
     for r0 in range(0, active.shape[0], rows):
         ids = active[r0:r0 + rows]
@@ -237,6 +245,7 @@ def _plan_record(plan: TilePlan, stats: PlanStats, out: RenderOutput,
     """Fold plan-slot counters into the (T,)-shaped FrameRecord."""
     scat = functools.partial(plan_mod.scatter_slots, plan,
                              num_tiles=num_tiles)
+    _SYNC_IS_FULL.inc()
     return FrameRecord(
         is_full=torch.tensor(is_full, device=n_gaussians.device),
         n_gaussians=n_gaussians,
@@ -267,6 +276,8 @@ def render_full_frame(scene, cam: Camera, cfg: RenderConfig,
     out, tplan, n_gaussians, stats = render_planned_frame(scene, cam, tplan,
                                                           cfg)
     coverage = 1.0 - out.transmittance
+    if not isinstance(frame_idx, torch.Tensor):
+        _SYNC_FRAME_IDX.inc()
     state = FrameState(
         rgb=out.rgb, exp_depth=out.exp_depth, trunc_depth=out.trunc_depth,
         source_mask=coverage > cfg.min_coverage,

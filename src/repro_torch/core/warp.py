@@ -24,12 +24,15 @@ import torch
 
 from repro_torch.core.camera import TILE, Camera, backproject
 from repro_torch.core.raster import scatter_add, tile_view
+from repro_torch.obs.metrics import host_syncs
 
 # A pixel is a usable reprojection source only if enough opacity
 # accumulated behind it in the reference render.
 MIN_COVERAGE = 0.25
 # Paper: interpolate when > 5/6 of the tile's pixels arrived.
 N0_RATIO = 5.0 / 6.0
+# The z-buffer's two boolean-mask indexes: the host waits for each.
+_SYNC_WINNERS = host_syncs("warp.scatter_zbuffer")
 
 
 class WarpResult(NamedTuple):
@@ -63,6 +66,7 @@ def _scatter_zbuffer(ti: torch.Tensor, z: torch.Tensor, valid: torch.Tensor,
     idx = ti_safe[winner]
     cnt = scatter_add(size, idx, torch.ones_like(idx, dtype=torch.float32))
     acc = scatter_add(size, idx, values[winner])
+    _SYNC_WINNERS.inc(2)
     hit = cnt > 0
     out = acc / torch.clamp_min(cnt, 1.0)[:, None]
     return torch.where(hit, zmin, 0.0), out, hit

@@ -6,8 +6,7 @@ first use into ``build/repro_torch/lib<name>.so`` at the repository root
 rebuilt when its source or any ``csrc/*.cuh`` header is newer.
 
 The slot split (``serve/placement.py``) renders on several devices from
-several host threads, so a library's first load and the wrappers'
-launch counts (``count_launch``) take a lock.
+several host threads, so a library's first load takes a lock.
 """
 from __future__ import annotations
 
@@ -24,7 +23,6 @@ from typing import Optional, Tuple
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 _LOAD_LOCK = threading.Lock()
-_COUNT_LOCK = threading.Lock()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -72,8 +70,3 @@ def load_library(name: str) -> ctypes.CDLL:
             compile_library(name)
         return ctypes.CDLL(str(out))
 
-
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``, a kernel wrapper's launch count."""
-    with _COUNT_LOCK:
-        wrapper.launches += 1

@@ -23,8 +23,9 @@ Inactive slots get -1.
 
 ``ldu_fill`` is the wrapper: CPU tensors take the plain version
 (``ldu_fill_host``, a numpy scan on the host), CUDA tensors launch the
-kernel (or raise) and add one to ``ldu_fill.launches``; a CUDA call
-copies nothing to the host.
+kernel (or raise) and add one to
+``kernel_launches_total{kernel="ldu_fill"}``; a CUDA call copies nothing
+to the host.
 """
 from __future__ import annotations
 
@@ -35,6 +36,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.obs.metrics import kernel_launches
+
+_LAUNCHES = kernel_launches("ldu_fill")
 
 MODES = ("greedy", "dynamic")
 
@@ -142,11 +146,9 @@ def ldu_fill(workload: torch.Tensor, active: torch.Tensor, num_blocks: int,
         return ldu_fill_host(workload, active, num_blocks, mode)
     out = ldu_fill_cuda(workload, active, num_blocks, mode)
     if workload.shape[0]:
-        _build.count_launch(ldu_fill)
+        _LAUNCHES.inc()
     return out
 
-
-ldu_fill.launches = 0
 
 
 def build() -> tuple:

@@ -18,8 +18,8 @@ design does about it is in the source.
 
 ``preprocess_geom`` is the wrapper: CPU tensors take the plain version
 (the ported ``projection.preprocess`` math), CUDA tensors launch the
-kernel (or raise), and ``preprocess_geom.launches`` counts those
-launches.
+kernel (or raise), and ``kernel_launches_total{kernel="preprocess_geom"}``
+counts those launches.
 """
 from __future__ import annotations
 
@@ -31,6 +31,9 @@ import torch
 
 from repro_torch.core.gaussians import covariances_from
 from repro_torch.kernels import _build
+from repro_torch.obs.metrics import kernel_launches
+
+_LAUNCHES = kernel_launches("preprocess_geom")
 
 # Opacity threshold below which a Gaussian does not contribute (1/255).
 ALPHA_THRESHOLD = 1.0 / 255.0
@@ -263,7 +266,7 @@ def preprocess_geom(means, log_scales, quats, opacity, w2c,
     """Preprocess geometry for N Gaussians on the device of ``means``.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel (or
-    raise) and add one to ``preprocess_geom.launches``.
+    raise) and add one to its ``kernel_launches_total``.
     """
     kw = dict(near=near, frustum_margin=frustum_margin, dilation=dilation)
     if means.device.type == "cpu":
@@ -271,11 +274,9 @@ def preprocess_geom(means, log_scales, quats, opacity, w2c,
                                      intrin, **kw)
     out = preprocess_geom_cuda(means, log_scales, quats, opacity, w2c,
                                intrin, **kw)
-    _build.count_launch(preprocess_geom)
+    _LAUNCHES.inc()
     return out
 
-
-preprocess_geom.launches = 0
 
 
 def build() -> tuple:

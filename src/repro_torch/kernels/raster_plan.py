@@ -23,7 +23,7 @@ T = 1, 0 processed) and skips its sort. K is padded to a power of two
 (``raster_plan_torch``: a stable ``torch.sort`` of each slot's lanes by
 (depth, lane), the chunked blend ``raster_chunked`` and the contribution
 unscrambled), CUDA tensors launch the kernel (or raise) and add one to
-``raster_plan_fused.launches``.
+``kernel_launches_total{kernel="raster_plan_fused"}``.
 """
 from __future__ import annotations
 
@@ -36,6 +36,9 @@ import torch
 from repro_torch.core.camera import TILE
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import T_EPS, alpha_of, pixel_coords
+from repro_torch.obs.metrics import kernel_launches
+
+_LAUNCHES = kernel_launches("raster_plan_fused")
 
 # Elements of one (rows, pixels, chunk) blend temporary in raster_chunked.
 _CHUNK_BLOCK = 1 << 24
@@ -348,11 +351,9 @@ def raster_plan_fused(mean2d, conic, rgb, opacity, depth, origins, counts,
                                  counts, slot_active, chunk=chunk, tile=tile)
     out = raster_plan_cuda(mean2d, conic, rgb, opacity, depth, origins,
                            counts, slot_active, chunk=chunk, tile=tile)
-    _build.count_launch(raster_plan_fused)
+    _LAUNCHES.inc()
     return out
 
-
-raster_plan_fused.launches = 0
 
 
 def build() -> tuple:

@@ -17,7 +17,7 @@ opacity 0. K is a multiple of ``chunk``.
 ``raster_tile`` is the wrapper: CPU tensors take the plain version
 (``raster_plan.raster_chunked``, the port of ``_raster_tile_chunked_jnp``),
 CUDA tensors launch the kernel (or raise) and add one to
-``raster_tile.launches``.
+``kernel_launches_total{kernel="raster_tile"}``.
 """
 from __future__ import annotations
 
@@ -30,6 +30,9 @@ from repro_torch.core.camera import TILE
 from repro_torch.kernels import _build
 from repro_torch.kernels.raster_plan import (MAX_SMEM, check_cuda_bins,
                                              raster_chunked)
+from repro_torch.obs.metrics import kernel_launches
+
+_LAUNCHES = kernel_launches("raster_tile")
 
 _WARPS = TILE * TILE // 32
 
@@ -99,11 +102,9 @@ def raster_tile(mean2d, conic, rgb, opacity, depth, origins, counts, *,
                               counts, chunk=chunk, tile=tile)
     out = raster_tile_cuda(mean2d, conic, rgb, opacity, depth, origins,
                            counts, chunk=chunk, tile=tile)
-    _build.count_launch(raster_tile)
+    _LAUNCHES.inc()
     return out
 
-
-raster_tile.launches = 0
 
 
 def build() -> tuple:

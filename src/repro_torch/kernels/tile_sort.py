@@ -15,8 +15,9 @@ bounds it and what the design does about it is in the source.
 
 ``tile_sort`` is the wrapper: CPU tensors take the plain version
 (``ref.tile_sort_ref``: stable ``argsort`` + gather), CUDA tensors launch
-the kernel (or raise) and add one to ``tile_sort.launches``. No render
-path calls it; the reference's binning selects with ``top_k`` instead.
+the kernel (or raise) and add one to
+``kernel_launches_total{kernel="tile_sort"}``. No render path calls it;
+the reference's binning selects with ``top_k`` instead.
 """
 from __future__ import annotations
 
@@ -30,6 +31,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.raster_plan import (MAX_SMEM, bitonic_sweeps,
                                              pow2_at_least)
 from repro_torch.kernels.ref import tile_sort_ref
+from repro_torch.obs.metrics import kernel_launches
+
+_LAUNCHES = kernel_launches("tile_sort")
 
 # Items per thread of a row too long for one warp; 16 past 8192 items,
 # so that a row stays within 1024 threads.
@@ -133,11 +137,9 @@ def tile_sort(keys: torch.Tensor, values: torch.Tensor):
         _check_inputs(keys, values)
         return tile_sort_ref(keys, values)
     out = tile_sort_cuda(keys, values)
-    _build.count_launch(tile_sort)
+    _LAUNCHES.inc()
     return out
 
-
-tile_sort.launches = 0
 
 
 def build() -> tuple:

@@ -1,11 +1,16 @@
-"""Observability: span tracing with Chrome-trace export and stage
-annotation (``trace``), and the counter/gauge/histogram registry whose
-``snapshot()`` the serve report composes (``metrics``)."""
-from repro_torch.obs.metrics import Counter, Gauge, Histogram, MetricsRegistry
-from repro_torch.obs.trace import (NULL_TRACER, Tracer, annotate,
+"""Observability: spans for the host trace, the profiler and NVTX with
+Chrome-trace export (``trace``), and the counter/gauge/histogram registry
+whose ``snapshot()`` the serve report composes, with the process-wide
+host-sync and kernel-launch counters (``metrics``)."""
+from repro_torch.obs.metrics import (PROCESS_METRICS, Counter, Gauge,
+                                     Histogram, MetricsRegistry, host_syncs,
+                                     kernel_launches)
+from repro_torch.obs.trace import (PROCESS_TRACER, Tracer, annotate,
+                                   merge_chrome_traces,
                                    validate_chrome_trace)
 
 __all__ = [
-    "Counter", "Gauge", "Histogram", "MetricsRegistry", "NULL_TRACER",
-    "Tracer", "annotate", "validate_chrome_trace",
+    "Counter", "Gauge", "Histogram", "MetricsRegistry", "PROCESS_METRICS",
+    "PROCESS_TRACER", "Tracer", "annotate", "host_syncs", "kernel_launches",
+    "merge_chrome_traces", "validate_chrome_trace",
 ]

@@ -12,6 +12,16 @@ Metrics are keyed by ``(name, labels)``. ``snapshot()`` returns one
 plain-types dict (JSON-safe; ``StreamServer.report`` composes it) and
 ``to_prometheus()`` renders the text exposition format. One registry
 lock guards creation, mutation and export.
+
+``PROCESS_METRICS`` is the process-wide registry of what the program
+counts outside any server: ``host_syncs_total{site=...}``, each place
+where the host waits for the device (``host_syncs``), and
+``kernel_launches_total{kernel=...}``, each hand-written kernel's
+launches (``kernel_launches``). A site creates its counter once, when
+its module is imported, so a count is one locked add. A read of values
+the program keeps on the device counts whatever the device, so a CPU run
+counts it too (nothing waits there); a copy of host values to the device
+counts where it makes one.
 """
 from __future__ import annotations
 
@@ -23,7 +33,8 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+           "PROCESS_METRICS", "host_syncs", "kernel_launches"]
 
 _NAME_RE = re.compile(r"[^a-zA-Z0-9_:]")
 
@@ -209,6 +220,14 @@ class MetricsRegistry:
                   **labels) -> Histogram:
         return self._get(Histogram, name, help, labels, keep=keep)
 
+    def family(self, name: str) -> Dict[str, float]:
+        """``{label values joined by ",": value}`` of the counters and
+        gauges registered under ``name`` (one label: its value)."""
+        with self._lock:
+            return {",".join(v for _, v in m.labels): m.value
+                    for (n, _), m in self._metrics.items()
+                    if n == name and isinstance(m, (Counter, Gauge))}
+
     def _by_kind(self):
         with self._lock:
             metrics = list(self._metrics.values())
@@ -270,3 +289,20 @@ class MetricsRegistry:
             lines.append(f"{name}_sum{_label_str(m.labels)} {m.total:g}")
             lines.append(f"{name}_count{_label_str(m.labels)} {m.count}")
         return "\n".join(lines) + "\n"
+
+
+PROCESS_METRICS = MetricsRegistry()
+
+
+def host_syncs(site: str) -> Counter:
+    """The process's count of host waits for the device at ``site``."""
+    return PROCESS_METRICS.counter(
+        "host_syncs_total", "times the host waited for the device",
+        site=site)
+
+
+def kernel_launches(kernel: str) -> Counter:
+    """The process's count of ``kernel``'s launches."""
+    return PROCESS_METRICS.counter(
+        "kernel_launches_total", "hand-written kernel launches",
+        kernel=kernel)

@@ -1,22 +1,35 @@
-"""Span tracing for the serve stack and stage annotation for device
-profiles (port of ``repro/obs/trace.py``).
+"""Spans for the serve stack and the frame's stages, one mechanism for the
+host trace, ``torch.profiler`` and NVTX (port of ``repro/obs/trace.py``).
 
-``Tracer`` records context-manager spans (one Chrome-trace complete
-``"X"`` event each, timed with ``time.perf_counter_ns``) onto named
-tracks (one ``tid`` per track) and exports a JSON object that loads in
-``chrome://tracing`` or Perfetto. Disabled (the default), ``span()``
-returns a shared no-op context manager; enabled, a span costs two clock
-reads and one locked append at exit. The buffer keeps the earliest
-``keep`` events and counts the rest in ``dropped``.
-``validate_chrome_trace`` checks an exported trace's well-formedness.
+``Tracer.span(name)`` opens one range through three sinks, each only
+while someone listens:
 
-``annotate(name)`` opens a ``torch.profiler.record_function`` range (it
-shows in ``torch.profiler`` traces) and, when a GPU is present, an NVTX
-range of the same name. Metadata only: numerics are unchanged.
+- a ``torch.profiler.record_function`` range named ``prefix + name``
+  while a torch profiler is collecting (otherwise the cost is one
+  ``_profiler_enabled()`` check), so a device trace attributes kernels
+  and idle gaps to the program's stages;
+- while the tracer is enabled, one Chrome-trace complete ``"X"`` event
+  (timed with ``time.perf_counter_ns``) on a named track (one ``tid``
+  per track), and, on a host with a GPU, an NVTX range of the same name
+  for an operator running Nsight Systems.
+
+With neither listening, ``span()`` returns a shared no-op context
+manager. The buffer keeps the earliest ``keep`` events and counts the
+rest in ``dropped``; ``async_span`` records a begin/end pair (Chrome
+``"b"``/``"e"``) of an interval that is known only after it ended, such
+as a frame's wait in the admission queue.
+
+``annotate(name, args)`` is a span of the process-wide ``PROCESS_TRACER``
+(disabled by default; set ``PROCESS_TRACER.enabled = True`` to record the
+frame's stages), on one track per host thread. ``to_chrome()`` writes
+the tracer's clock anchor into ``otherData["clock"]`` and
+``merge_chrome_traces`` uses it to lay a host trace over a profiler
+trace on the profiler's time base. ``validate_chrome_trace`` checks an
+exported trace's well-formedness. Metadata only: numerics are unchanged.
 """
 from __future__ import annotations
 
-import contextlib
+import functools
 import json
 import threading
 import time
@@ -25,12 +38,20 @@ from typing import Any, Dict, List, Optional
 import torch
 
 __all__ = [
-    "NULL_TRACER", "Tracer", "annotate", "validate_chrome_trace",
+    "PROCESS_TRACER", "Tracer", "annotate",
+    "merge_chrome_traces", "validate_chrome_trace",
 ]
+
+_profiling = torch._C._autograd._profiler_enabled
+
+
+@functools.lru_cache(maxsize=None)
+def _has_nvtx() -> bool:
+    return torch.cuda.is_available()
 
 
 class _NullSpan:
-    """Shared no-op context manager returned by a disabled tracer."""
+    """Shared no-op context manager returned when nobody listens."""
 
     __slots__ = ()
 
@@ -45,25 +66,43 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    """One live span: timestamps on enter/exit, emits a complete event."""
+    """One live span: a profiler range and/or a recorded event."""
 
-    __slots__ = ("_tracer", "_name", "_track", "_args", "_t0")
+    __slots__ = ("_tracer", "_name", "_track", "_args", "_record", "_rf",
+                 "_t0")
 
-    def __init__(self, tracer: "Tracer", name: str, track: str,
-                 args: Optional[dict]):
+    def __init__(self, tracer: "Tracer", name: str, track: Optional[str],
+                 args: Optional[dict], record: bool, profile: bool):
         self._tracer = tracer
         self._name = name
         self._track = track
         self._args = args
+        self._record = record
+        self._rf = torch.profiler.record_function(tracer.prefix + name) \
+            if profile else None
 
     def __enter__(self):
-        self._t0 = time.perf_counter_ns()
+        if self._record:
+            self._t0 = time.perf_counter_ns()
+            if _has_nvtx():
+                torch.cuda.nvtx.range_push(self._tracer.prefix + self._name)
+        if self._rf is not None:
+            self._rf.__enter__()
         return self
 
     def __exit__(self, *exc):
-        t1 = time.perf_counter_ns()
-        self._tracer._emit_complete(self._name, self._track, self._t0, t1,
-                                    self._args)
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+        if self._record:
+            if _has_nvtx():
+                torch.cuda.nvtx.range_pop()
+            t1 = time.perf_counter_ns()
+            track = self._track if self._track is not None \
+                else f"thread {threading.current_thread().name}"
+            # args are copied at exit: a caller may add to its dict while
+            # the span is open (a round's frame counts).
+            self._tracer._emit_complete(self._name, track, self._t0, t1,
+                                        self._args)
         return False
 
 
@@ -72,33 +111,43 @@ class Tracer:
 
     ``span(name, track=..., args=...)`` is the whole API surface the
     serve loop uses; ``instant`` marks point events (e.g. a batcher
-    resize). Tracks are created on first use; every distinct ``track``
-    string becomes one Chrome-trace thread row.
+    resize) and ``async_span`` intervals known after the fact. Tracks are
+    created on first use; every distinct ``track`` string becomes one
+    Chrome-trace thread row. ``prefix`` is put before a span's name in
+    the profiler and NVTX (``"repro.serve/"`` for the server's spans);
+    the host trace keeps the bare name.
     """
 
     KEEP = 65536        # default event-buffer bound
     PID = 1             # single logical process in the trace
 
-    def __init__(self, enabled: bool = False, keep: int = KEEP):
+    def __init__(self, enabled: bool = False, keep: int = KEEP,
+                 prefix: str = ""):
         if keep < 1:
             raise ValueError(f"keep must be >= 1, got {keep}")
         self.enabled = bool(enabled)
         self.keep = int(keep)
+        self.prefix = str(prefix)
         self.dropped = 0
         self._lock = threading.Lock()
         self._events: List[dict] = []
         self._tracks: Dict[str, int] = {}
         # One clock zero per tracer: ts fields are microseconds since
-        # construction, so traces from one server share an origin.
+        # construction, so traces from one server share an origin. The
+        # Unix time read beside it anchors the zero for merging with a
+        # profiler trace (which stamps Unix-epoch microseconds).
         self._t0_ns = time.perf_counter_ns()
+        self._unix_ns = time.time_ns()
 
     # -- recording ---------------------------------------------------------
-    def span(self, name: str, track: str = "main",
+    def span(self, name: str, track: Optional[str] = "main",
              args: Optional[dict] = None):
-        """Context manager timing its body as one complete event."""
-        if not self.enabled:
+        """Context manager over its body (module docstring). ``track``
+        None is the calling thread's own track."""
+        profile = _profiling()
+        if not (self.enabled or profile):
             return _NULL_SPAN
-        return _Span(self, name, track, args)
+        return _Span(self, name, track, args, self.enabled, profile)
 
     def instant(self, name: str, track: str = "main",
                 args: Optional[dict] = None) -> None:
@@ -108,22 +157,38 @@ class Tracer:
         now = time.perf_counter_ns()
         ev = {"name": name, "ph": "i", "s": "t",
               "ts": (now - self._t0_ns) / 1e3,
-              "pid": self.PID, "tid": self._track_id(name=None, track=track)}
+              "pid": self.PID, "tid": self._track_id(track)}
         if args:
             ev["args"] = dict(args)
         self._append(ev)
+
+    def async_span(self, name: str, t0_s: float, t1_s: float, span_id: str,
+                   track: str = "main", args: Optional[dict] = None) -> None:
+        """An interval ``[t0_s, t1_s]`` of ``time.perf_counter()`` seconds
+        as a Chrome async pair (``"b"``/``"e"`` with ``id`` ``span_id``):
+        such intervals may overlap on one track."""
+        if not self.enabled:
+            return
+        tid = self._track_id(track)
+        for ph, t in (("b", t0_s), ("e", t1_s)):
+            ev = {"name": name, "ph": ph, "cat": name, "id": span_id,
+                  "ts": (t * 1e9 - self._t0_ns) / 1e3, "pid": self.PID,
+                  "tid": tid}
+            if args and ph == "b":
+                ev["args"] = dict(args)
+            self._append(ev)
 
     def _emit_complete(self, name: str, track: str, t0_ns: int, t1_ns: int,
                        args: Optional[dict]) -> None:
         ev = {"name": name, "ph": "X",
               "ts": (t0_ns - self._t0_ns) / 1e3,
               "dur": (t1_ns - t0_ns) / 1e3,
-              "pid": self.PID, "tid": self._track_id(name=None, track=track)}
+              "pid": self.PID, "tid": self._track_id(track)}
         if args:
             ev["args"] = dict(args)
         self._append(ev)
 
-    def _track_id(self, name, track: str) -> int:
+    def _track_id(self, track: str) -> int:
         tid = self._tracks.get(track)
         if tid is None:
             with self._lock:
@@ -147,8 +212,9 @@ class Tracer:
         """The JSON-object trace: metadata + recorded events.
 
         Track-name metadata is synthesized at export (never buffered, so
-        it can't be squeezed out by the bound), and ``otherData`` carries
-        the drop accounting.
+        it can't be squeezed out by the bound); ``otherData`` carries the
+        drop accounting and the clock anchor (``perf_counter_ns`` and
+        ``unix_ns`` of ts = 0).
         """
         with self._lock:
             events = list(self._events)
@@ -165,7 +231,9 @@ class Tracer:
                          "args": {"sort_index": tid}})
         return {"traceEvents": meta + events,
                 "displayTimeUnit": "ms",
-                "otherData": {"events": len(events), "dropped": dropped}}
+                "otherData": {"events": len(events), "dropped": dropped,
+                              "clock": {"perf_counter_ns": self._t0_ns,
+                                        "unix_ns": self._unix_ns}}}
 
     def write(self, path: str) -> int:
         """Serialize to ``path``; returns the recorded-event count."""
@@ -175,23 +243,40 @@ class Tracer:
         return int(trace["otherData"]["events"])
 
 
-# The module-level disabled tracer: components that take an optional
-# tracer default to this, so their span lines need no None checks.
-NULL_TRACER = Tracer(enabled=False)
+# The process-wide tracer: ``annotate``'s frame stages, and the spans of
+# components built without a tracer of their own (so their span lines
+# need no None checks).
+PROCESS_TRACER = Tracer(enabled=False)
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """Name a stage for ``torch.profiler`` and NVTX timelines."""
-    nvtx = torch.cuda.is_available()
-    with torch.profiler.record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
-                torch.cuda.nvtx.range_pop()
+def annotate(name: str, args: Optional[dict] = None):
+    """A span of ``PROCESS_TRACER`` on the calling thread's track: names a
+    stage for ``torch.profiler`` and, when the tracer records, for the
+    host trace and NVTX."""
+    return PROCESS_TRACER.span(name, track=None, args=args)
+
+
+def merge_chrome_traces(host: dict, profiler: dict) -> dict:
+    """A profiler's exported trace with ``host``'s events (a
+    ``Tracer.to_chrome()``) laid over it on the profiler's time base.
+
+    The profiler stamps Unix-epoch microseconds less
+    ``baseTimeNanoseconds``; the host trace's clock anchor gives the Unix
+    time of its zero. The host events take a process id the profiler's
+    trace does not use.
+    """
+    shift = (host["otherData"]["clock"]["unix_ns"]
+             - profiler.get("baseTimeNanoseconds", 0)) / 1e3
+    pids = [e["pid"] for e in profiler["traceEvents"]
+            if isinstance(e.get("pid"), int)]
+    pid = max(pids, default=0) + 1
+    moved = []
+    for ev in host["traceEvents"]:
+        ev = dict(ev, pid=pid)
+        if "ts" in ev:
+            ev["ts"] = ev["ts"] + shift
+        moved.append(ev)
+    return dict(profiler, traceEvents=list(profiler["traceEvents"]) + moved)
 
 
 def validate_chrome_trace(trace: Any) -> dict:

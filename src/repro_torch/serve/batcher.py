@@ -32,10 +32,13 @@ import torch
 from repro_torch.core import engine
 from repro_torch.core.camera import Camera
 from repro_torch.core.engine import EngineCarry, StreamsResult
-from repro_torch.obs.trace import NULL_TRACER, Tracer
+from repro_torch.obs.metrics import host_syncs
+from repro_torch.obs.trace import PROCESS_TRACER, Tracer
 from repro_torch.serve.session import SessionManager
 
 _EYE = np.eye(4, dtype=np.float32)
+# The batch's poses copied to the camera's device (the host waits).
+_SYNC_POSES = host_syncs("batcher.batch")
 
 
 class SlotBatch(NamedTuple):
@@ -86,7 +89,7 @@ class ContinuousBatcher:
         # The scenes' Gaussian count, required when the config threads the
         # contribution prior (pipeline.contrib_enabled); None otherwise.
         self.n_gaussians = n_gaussians
-        self.tracer = NULL_TRACER if tracer is None else tracer
+        self.tracer = PROCESS_TRACER if tracer is None else tracer
         self._slot_sid: List[Optional[int]] = [None] * self.slots
         # Idle slots are all identical (count 0, eye pose, zero state).
         self._idle_carry = engine.init_carry(cam, _EYE, n_gaussians)
@@ -180,6 +183,7 @@ class ContinuousBatcher:
                stamps, slot_scene, scene_ids) -> SlotBatch:
         dev = self.cam.device
         i32 = dict(dtype=torch.int32)
+        _SYNC_POSES.inc()
         return SlotBatch(poses=torch.as_tensor(poses, device=dev),
                          counts=torch.as_tensor(counts, **i32),
                          phases=torch.as_tensor(phases, **i32),

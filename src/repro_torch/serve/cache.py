@@ -31,7 +31,7 @@ import numpy as np
 
 from repro_torch.core.plan import rerender_demand
 from repro_torch.interop import to_numpy
-from repro_torch.obs.trace import NULL_TRACER, Tracer
+from repro_torch.obs.trace import PROCESS_TRACER, Tracer
 
 DEFAULT_R_BUCKETS = (8, 16, 32)
 DEFAULT_B_BUCKETS = (2, 4, 8)
@@ -166,7 +166,7 @@ class ExecutableCache:
 
     def __init__(self, tracer: Optional[Tracer] = None):
         self._entries: Dict[Hashable, CacheEntry] = {}
-        self._tracer = NULL_TRACER if tracer is None else tracer
+        self._tracer = PROCESS_TRACER if tracer is None else tracer
         self.misses = 0
         self.hits = 0
         self.evicted_keys = 0

@@ -80,7 +80,7 @@ from repro_torch.core.streaming import (AcceleratorConfig, FrameWork,
                                         frameworks_from_stacked,
                                         simulate_sequence, throughput)
 from repro_torch.interop import to_numpy
-from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.metrics import MetricsRegistry, host_syncs
 from repro_torch.obs.trace import Tracer
 from repro_torch.scenes.trajectory import dolly_trajectory, orbit_trajectory
 from repro_torch.serve.admission import (AdmissionConfig,
@@ -92,6 +92,10 @@ from repro_torch.serve.cache import (BucketPolicy, ExecutableCache,
 from repro_torch.serve.placement import build_render_fn, stream_mesh
 from repro_torch.serve.scenes import DEFAULT_SCENE_BUCKETS, SceneRegistry
 from repro_torch.serve.session import SessionManager, StreamSession
+
+# The round's records read to the host in ``_observe``: four reads, and a
+# fifth when the group rendered a warped frame.
+_SYNC_OBSERVE = host_syncs("server.observe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,10 +116,12 @@ class ServeConfig:
     sim_keep: int = 4096        # most recent frames kept for the sim
     # Observability (repro_torch/obs): ``trace=True`` records
     # round/plan/resize/admit/build/dispatch/barrier/commit spans (one
-    # track per scene-bucket group) plus per-key first-call spans,
-    # exported as Chrome-trace JSON via ``StreamServer.tracer``. Off by
-    # default — a disabled tracer's span() is a shared no-op. The metrics
-    # registry is always on (host counters; report() composes it).
+    # track per scene-bucket group), per-key first-call spans and each
+    # frame's queue wait, exported as Chrome-trace JSON via
+    # ``StreamServer.tracer``. Off by default. Whatever it is, a torch
+    # profiler that is collecting sees the spans as ``repro.serve/<name>``
+    # ranges. The metrics registry is always on (host counters; report()
+    # composes it).
     trace: bool = False
     trace_keep: int = Tracer.KEEP  # tracer event-buffer bound
     # Round planning + backpressure + SLO classes (serve/admission.py).
@@ -320,7 +326,8 @@ class StreamServer:
         # report() composes its snapshot() — and ONE tracer whose spans
         # the serving round opens below.
         self.metrics = MetricsRegistry()
-        self.tracer = Tracer(enabled=scfg.trace, keep=scfg.trace_keep)
+        self.tracer = Tracer(enabled=scfg.trace, keep=scfg.trace_keep,
+                             prefix="repro.serve/")
         m = self.metrics
         self._m_streams = m.counter("serve_streams_attached_total",
                                     "streams admitted via attach()")
@@ -351,6 +358,15 @@ class StreamServer:
         # latency histograms feed the fairness split in report().
         self._m_latency = m.histogram(
             "serve_latency_seconds", "per-frame enqueue -> render-complete",
+            keep=self.LATENCY_KEEP)
+        # A frame's latency is its wait for the round that renders it
+        # plus that round's time: t1 - enq = (t0 - enq) + (t1 - t0).
+        self._m_wait = m.histogram(
+            "serve_queue_wait_seconds",
+            "per-frame enqueue -> start of the round that renders it",
+            keep=self.LATENCY_KEEP)
+        self._m_round_s = m.histogram(
+            "serve_round_seconds", "per busy round, start -> barrier",
             keep=self.LATENCY_KEEP)
         self._m_sort_pairs = m.histogram(
             "device_sort_pairs", "pairs entering the per-frame sort",
@@ -684,8 +700,9 @@ class StreamServer:
             bat.resize(b, self.manager, group=self._group_for(b))
             self.slots_history.append(b)
 
-    def _observe(self, result) -> None:
+    def _observe(self, result) -> int:
         """Fold a group's records into the demand history; re-pick R.
+        Returns the group's real key frames.
 
         Only real (non-padding) sparse frames contribute demand samples
         — ``plan.rerender_demand`` per frame, the same statistic
@@ -695,7 +712,8 @@ class StreamServer:
         """
         recs = result.records
         mask = to_numpy(result.frame_active).reshape(-1)
-        sparse = mask & ~to_numpy(recs.is_full).reshape(-1)
+        full = to_numpy(recs.is_full).reshape(-1)
+        sparse = mask & ~full
         # Device-work histograms: per-frame sort pairs and culled pairs
         # over real frames, re-render demand over real sparse frames —
         # derived from the records the engine already returns.
@@ -704,6 +722,7 @@ class StreamServer:
             t.reshape(-1, t.shape[-1]).sum(axis=-1)[mask])
         self._m_culled.observe_many(
             to_numpy(recs.culled_pairs).reshape(-1)[mask])
+        _SYNC_OBSERVE.inc(4 + bool(sparse.any()))
         if sparse.any():
             demand = to_numpy(rerender_demand(
                 recs.active, recs.overflow_tiles)).reshape(-1)
@@ -714,6 +733,7 @@ class StreamServer:
             if new_cap != self.capacity:
                 self.capacity = new_cap
                 self.capacity_history.append(new_cap)
+        return int((mask & full).sum())
 
     # -- accelerator-in-the-loop -------------------------------------------
     def _record_sim(self, batch, result) -> None:
@@ -799,11 +819,27 @@ class StreamServer:
             self._m_trace_drop.inc()
         self.trace.append(info)
 
+    def _trace_waits(self, batch, t0: float, rnd: int) -> None:
+        """Each of the group's frames' queue wait as an async span, id
+        ``<session>.<frame>``, before ``commit`` counts the frames."""
+        for i, sid in enumerate(batch.sids):
+            sess = self.manager.sessions.get(sid) if sid is not None \
+                else None
+            if sess is None:
+                continue
+            for k, t in enumerate(batch.enq_times[i]):
+                self.tracer.async_span(
+                    "queue_wait", t, t0, f"{sid}.{sess.frames_rendered + k}",
+                    track="queue", args={"round": rnd})
+
     def step(self) -> dict:
         self._m_rounds.inc()
         rnd = self.rounds
         tr = self.tracer
-        with tr.span("round", track="round", args={"round": rnd}):
+        # The round span copies its args when it closes: the frame counts
+        # are added below.
+        round_args = {"round": rnd}
+        with tr.span("round", track="round", args=round_args):
             with tr.span("plan", track="round"):
                 demand = self._bucket_demand()
                 plan = self.admission.plan_round(demand)
@@ -848,11 +884,14 @@ class StreamServer:
                 self._sync()
             t1 = self.clock()
             self._m_busy.inc()         # before _observe: its adapt cadence
-            total_frames = 0
+            self._m_round_s.observe(t1 - t0)
+            total_frames = key_frames = 0
             group_infos = []
             scene_ids_served: List[int] = []
             for bucket, bat, batch, result in groups:
                 with tr.span("commit", track=f"bucket {bucket}"):
+                    if tr.enabled:
+                        self._trace_waits(batch, t0, rnd)
                     detached = bat.commit(batch, result, self.manager, t1)
                     for sess in detached:
                         self.registry.release(sess.scene_id)
@@ -860,11 +899,12 @@ class StreamServer:
                     counts = batch.counts.tolist()
                     blat = self._bucket_latency(bucket)
                     for i in range(len(batch.sids)):
-                        lats = [t1 - t
-                                for t in batch.enq_times[i][:counts[i]]]
+                        enq = batch.enq_times[i][:counts[i]]
+                        lats = [t1 - t for t in enq]
                         self._m_latency.observe_many(lats)
                         blat.observe_many(lats)
-                    self._observe(result)      # counts busy rounds
+                        self._m_wait.observe_many([t0 - t for t in enq])
+                    key_frames += self._observe(result)  # busy rounds
                     if self.scfg.sim_latency:
                         self._record_sim(batch, result)
                     self.admission.record_service(bucket,
@@ -881,6 +921,7 @@ class StreamServer:
                         "slots": bat.slots,
                         "scene_ids": ids, "detached": len(detached)})
             self._m_render_s.inc(t1 - t0)
+            round_args.update(frames=total_frames, key_frames=key_frames)
         info = {"round": rnd, "frames": total_frames,
                 "bound_slots": sum(g["bound_slots"] for g in group_infos),
                 "groups": group_infos,

@@ -19,6 +19,7 @@ from repro_torch.core import metrics as tmetrics
 from repro_torch.core import projection as tproj
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import preprocess as tpre
+from repro_torch.obs.metrics import kernel_launches
 from repro_torch.scenes import synthetic as tsyn
 from repro_torch.scenes import trajectory as ttraj
 
@@ -171,9 +172,10 @@ def test_preprocess_geom_plain_vs_pallas_interpret(blob_scene, wide_cam):
 def test_preprocess_geom_wrapper_counts_no_cpu_launch(small_scene,
                                                       small_cam):
     """On CPU tensors the wrapper runs the plain version, never a kernel."""
-    before = tpre.preprocess_geom.launches
+    launches = kernel_launches("preprocess_geom")
+    before = launches.value
     tproj.preprocess(P.scene(small_scene), P.camera(small_cam))
-    assert tpre.preprocess_geom.launches == before
+    assert launches.value == before
 
 
 @pytest.mark.parametrize("kind", ["orbit", "dolly"])

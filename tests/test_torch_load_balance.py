@@ -21,6 +21,7 @@ from _hypothesis_compat import given, settings, st
 from repro.core import load_balance as jlb
 from repro_torch.core import load_balance as tlb
 from repro_torch.kernels import ldu_fill as kl
+from repro_torch.obs.metrics import kernel_launches
 
 POLICIES = ("static_blocked", "round_robin", "dynamic", "ls_gaussian")
 BLOCKS = (1, 3, 32, 33)
@@ -314,9 +315,10 @@ def test_plain_fills_equal_reference_scans():
 def test_wrapper_checks_and_counts():
     wl = torch.arange(10, dtype=torch.int32)
     act = torch.ones(10, dtype=torch.bool)
-    kl.ldu_fill.launches = 0
+    launches = kernel_launches("ldu_fill")
+    before = launches.value
     assert kl.ldu_fill(wl, act, 4).dtype == torch.int32
-    assert kl.ldu_fill.launches == 0            # CPU: the plain version
+    assert launches.value == before             # CPU: the plain version
     with pytest.raises(ValueError, match="unknown mode"):
         kl.ldu_fill(wl, act, 4, "x")
     with pytest.raises(ValueError, match="one \\(R,\\) shape"):
@@ -325,4 +327,4 @@ def test_wrapper_checks_and_counts():
         kl.ldu_fill_cuda(wl, act, 4)
     empty = kl.ldu_fill(wl[:0], act[:0], 4)
     assert empty.dtype == torch.int32 and empty.shape == (0,)
-    assert kl.ldu_fill.launches == 0
+    assert launches.value == before

@@ -38,7 +38,7 @@ from repro.core.camera import look_at as jlook_at, make_camera as jmake_camera
 from repro_torch import serve as tserve
 from repro_torch.core import engine as tengine
 from repro_torch.core.pipeline import RenderConfig as TRenderConfig
-from repro_torch.kernels import _build
+from repro_torch.obs.metrics import MetricsRegistry
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SPLIT_ATOL = 1e-5
@@ -218,18 +218,16 @@ def test_a_failing_group_raises(inputs, monkeypatch):
 
 
 def test_launch_counts_under_threads():
-    """``count_launch`` from more threads than cores, with the switch
-    interval shortened: no count is lost."""
-    def wrapper():
-        pass
-
-    wrapper.launches = 0
+    """A registry counter's ``inc`` from more threads than cores, with the
+    switch interval shortened: no count is lost."""
+    launches = MetricsRegistry().counter("kernel_launches_total",
+                                         kernel="probe")
     n_threads, each = 4 * (os.cpu_count() or 1), 2000
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
         ts = [threading.Thread(target=lambda: [
-            _build.count_launch(wrapper) for _ in range(each)])
+            launches.inc() for _ in range(each)])
             for _ in range(n_threads)]
         for t in ts:
             t.start()
@@ -238,7 +236,7 @@ def test_launch_counts_under_threads():
         assert not any(t.is_alive() for t in ts)
     finally:
         sys.setswitchinterval(interval)
-    assert wrapper.launches == n_threads * each
+    assert launches.value == n_threads * each
 
 
 def _assert_reference(got, ref, prefix):

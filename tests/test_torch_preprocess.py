@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import preprocess as pre
+from repro_torch.obs.metrics import kernel_launches
 
 CSRC = pathlib.Path(pre.__file__).resolve().parents[1] / "csrc"
 
@@ -156,9 +157,10 @@ def test_wrapper_checks_raise_and_cpu_runs_plain():
     bad[1] = torch.zeros((3, n)).T
     with pytest.raises(ValueError, match="contiguous"):
         pre.preprocess_geom_cuda(*bad, intrin)
-    before = pre.preprocess_geom.launches
+    launches = kernel_launches("preprocess_geom")
+    before = launches.value
     geom = pre.preprocess_geom(*args, intrin)
-    assert pre.preprocess_geom.launches == before
+    assert launches.value == before
     want = pre.preprocess_geom_torch(*args, intrin)
     for g, w in zip(geom, want):
         assert torch.equal(g, w)

@@ -18,6 +18,7 @@ from repro.kernels.tile_sort import tile_sort_pallas
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import tile_sort as ts
 from repro_torch.kernels.raster_plan import MAX_SMEM
+from repro_torch.obs.metrics import kernel_launches
 
 
 def _rows(seed, t, k, *, ties):
@@ -32,11 +33,13 @@ def _rows(seed, t, k, *, ties):
 def test_plain_matches_stable_oracle_with_ties(t, k):
     keys, vals = _rows(t * k, t, k, ties=True)
     keys[0, :3] = [np.inf, -0.0, 0.0]
+    before = kernel_launches("tile_sort").value
     got = ts.tile_sort(torch.from_numpy(keys), torch.from_numpy(vals))
     want = jref.tile_sort_ref(jnp.asarray(keys), jnp.asarray(vals))
     for g, w in zip(got, want):
         P.assert_equal(g, w)
-    assert ts.tile_sort.launches == 0          # CPU: the plain version
+    # CPU: the plain version
+    assert kernel_launches("tile_sort").value == before
 
 
 @pytest.mark.parametrize("seed", [0, 1])
