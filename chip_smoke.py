@@ -5,9 +5,9 @@
 
 Phases (each prints its own lines; a failed check exits non-zero):
 
-1. Device: the card's name and power limit, the five kernels built from
-   ``src/repro_torch`` (one nvcc per ``csrc/*.cu``, all five started
-   together), their build times and ptxas lines.
+1. Device: the card's name and power limit, the six kernel libraries
+   built from ``src/repro_torch`` (one nvcc per ``csrc/*.cu``, all six
+   started together), their build times and ptxas lines.
 2. Kernels vs their plain PyTorch versions on the card, at the main
    paths' shapes: the first key frame's real (R = 8160, K = 1024) bins
    for the fused sort + blend kernel (2a: as binned, with lanes shuffled
@@ -29,7 +29,12 @@ Phases (each prints its own lines; a failed check exits non-zero):
    key frame's bin counts (B = 32) and a warped frame's, at B = 1, 7,
    33, 64, in its dynamic mode, and on inputs that force every branch
    (all workloads zero, all equal, one above the cap, none active, sums
-   past 2**24).
+   past 2**24). 2f: the sparse TAIT intersect and binning kernels
+   exactly against their plain version and the dense path (every field
+   of ``intersect_and_bin``) at the benchmark's key frames (1.1 M
+   Gaussians x 2,170 tiles at 992x560, 560 k x 8,160 at 1920x1088) and
+   on a warped frame one 4-degree turn step later (re-render plan, DPES
+   limits; once more with a cull), with one host wait a call.
    Each kernel's median device time (profiler), its time with the launch
    (CUDA events), the plain version's time, a library call's time where
    one computes the same function, and the least time the card could
@@ -284,7 +289,7 @@ def max_err(a, b):
 
 
 KERNELS = ("raster_tile", "raster_plan_fused", "preprocess_geom",
-           "tile_sort", "ldu_fill")
+           "tile_sort", "ldu_fill", "intersect_bin")
 
 
 def launch_counts(since=None):
@@ -334,8 +339,8 @@ def print_occupancy(what, lines, threads, smem):
 
 def phase_device():
     from concurrent.futures import ThreadPoolExecutor
-    from repro_torch.kernels import (ldu_fill, preprocess, raster_plan,
-                                     raster_tile, tile_sort)
+    from repro_torch.kernels import (intersect_bin, ldu_fill, preprocess,
+                                     raster_plan, raster_tile, tile_sort)
     print("== phase 1: device", flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -346,7 +351,8 @@ def phase_device():
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
-    mods = (preprocess, raster_plan, raster_tile, tile_sort, ldu_fill)
+    mods = (preprocess, raster_plan, raster_tile, tile_sort, ldu_fill,
+            intersect_bin)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as pool:
         builds = [pool.submit(m.build) for m in mods]
@@ -370,9 +376,9 @@ def key_frame_bins(scene, cam, cfg):
     from repro_torch.core.projection import preprocess
     tplan = plan.full_plan(cam.tiles_x, cam.tiles_y, device=cam.device)
     proj = preprocess(scene, cam, near=cfg.near)
-    slots = intersect.take_tiles(intersect.make_tile_grid(cam),
-                                 tplan.tile_ids)
-    bins = pipeline.intersect_and_bin(proj, slots, tplan, cfg, None)[0]
+    grid = intersect.make_tile_grid(cam)
+    slots = intersect.take_tiles(grid, tplan.tile_ids)
+    bins = pipeline.intersect_and_bin(proj, grid, tplan, cfg, None)[0]
     tg = binning.gather_tiles(proj, bins)
     return tplan, proj, bins, (tg.mean2d, tg.conic, tg.rgb, tg.opacity,
                                tg.depth, slots.origins, bins.count)
@@ -1148,8 +1154,7 @@ def phase_slice(scene, cam, poses, cfg):
           f"{N_GAUSSIANS} structured_scene sh_degree 3, {N_FRAMES}-frame "
           f"dolly, {cfg}", flush=True)
     print("  reduced: N cut from 2,000,000 (repro/configs/lsgaussian.py:12)"
-          " because the dense (N, T) intersect and binning would hold "
-          "1.6e10 entries per plane at that size", flush=True)
+          " to keep the script's phases within its time limit", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
     base = launch_counts()
@@ -1169,6 +1174,9 @@ def phase_slice(scene, cam, poses, cfg):
           f"preprocess kernel launched once per frame ({N_FRAMES})")
     check(launches["ldu_fill"] == N_FRAMES,
           f"LDU fill kernel launched once per frame ({N_FRAMES})")
+    check(launches["intersect_bin"] == 5 * N_FRAMES,
+          f"sparse intersect's five kernels launched once per frame "
+          f"({5 * N_FRAMES})")
     check(bool(torch.isfinite(res.frames).all()), "all frames finite")
     is_full = res.records.is_full.tolist()
     check(is_full == [f % cfg.window == 0 for f in range(N_FRAMES)],
@@ -1409,6 +1417,192 @@ def phase_ablation(scene, cam, poses, cfg, base):
     print("  DPES on the warped frames (phase 3):", flush=True)
     dpes_workloads(scene, cam, poses, cfg, base.records)
     return out
+
+
+# Phase 2f: the sparse TAIT intersect and binning (kernels/intersect_bin.py)
+# at the benchmark's key frames and on a turn-like warped frame: (name, N,
+# width, height). Each scene is this script's structured_scene at that size.
+INTERSECT_SCENES = (("tandt-train", 1_100_000, 992, 560),
+                    ("lsgaussian-1088p", 560_000, 1920, 1088))
+# The orbit step of the benchmark's turn traffic: 360 deg/s at 90 Hz.
+TURN_DEG = 4.0
+INTERSECT_KERNELS = ("intersect_map_kernel", "intersect_pairs_kernel",
+                     "intersect_scan_kernel", "bin_select_kernel")
+
+
+def device_ms_per_call(fn, names, runs, flush=None):
+    """Mean device ms a call of ``fn`` of the kernels whose names contain
+    one of ``names`` (None: every kernel), in all and by name, over
+    ``runs`` profiled calls (L2 flushed before each where ``flush`` is
+    given)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            if flush is not None:
+                flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or e.name.startswith("repro."):
+            continue
+        hit = [n for n in names if n in e.name] if names else [e.name]
+        if hit:
+            by[hit[0]] = by.get(hit[0], 0.0) + e.time_range.elapsed_us() / 1e3
+    by = {k: v / runs for k, v in by.items()}
+    return sum(by.values()), by
+
+
+def intersect_inputs(name, n, width, height, cfg):
+    """(case name, proj, grid, plan, limit, cull) of the scene's key frame
+    and of a warped frame one turn step later (DPES limit, re-render
+    plan; once more with a cull over its warp gate)."""
+    from repro_torch.core import culling, intersect, pipeline, plan
+    from repro_torch.core import warp as warp_mod
+    from repro_torch.core.camera import look_at, make_camera
+    from repro_torch.core.projection import preprocess
+    from repro_torch.scenes.synthetic import structured_scene
+    scene = structured_scene(SEED, n, sh_degree=3)
+    target = torch.tensor([0.0, 0.0, 6.0], device="cuda")
+
+    def pose(deg):
+        th = np.radians(deg)
+        eye = target + 6.0 * torch.tensor(
+            [np.sin(th), -0.5 / 6.0, -np.cos(th)], dtype=torch.float32,
+            device="cuda")
+        return look_at(eye, target)
+
+    cam0 = make_camera(pose(0.0), width=width, height=height)
+    cam1 = cam0.with_pose(pose(TURN_DEG))
+    grid = intersect.make_tile_grid(cam0)
+    key_plan = plan.full_plan(cam0.tiles_x, cam0.tiles_y)
+    yield (f"{name} key frame", preprocess(scene, cam0, near=cfg.near),
+           grid, key_plan, None, None)
+    _, state, _ = pipeline.render_full_frame(scene, cam0, cfg)
+    w = warp_mod.viewpoint_transform(
+        state.rgb, state.exp_depth, state.trunc_depth, state.source_mask,
+        cam0, cam1, n0_ratio=cfg.n0_ratio, near=cfg.near)
+    wplan = plan.sparse_plan(w.rerender_tile, cam1.tiles_x, cam1.tiles_y,
+                             None)
+    limit = w.dpes_depth[wplan.tile_ids.long()] * cfg.dpes_margin
+    proj1 = preprocess(scene, cam1, near=cfg.near)
+    yield (f"{name} warped frame ({TURN_DEG:g} deg turn)", proj1, grid, wplan,
+           limit, None)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    prior = torch.rand((n,), generator=gen, device="cuda") * 4.0
+    yield (f"{name} warped frame, cull 1.0", proj1, grid, wplan, limit,
+           (prior, culling.warp_gate(w.valid_per_tile)))
+
+
+def same_bins(got, want):
+    """Names of the fields of two intersect_and_bin results that differ."""
+    bad = [f for f in ("indices", "valid", "count", "overflow")
+           if not torch.equal(getattr(got[0], f), getattr(want[0], f))]
+    bad += [f for f, a, b in zip(("candidate_pairs", "raw_slots",
+                                  "culled_pairs", "slot_active"),
+                                 got[1:], want[1:]) if not torch.equal(a, b)]
+    return bad
+
+
+def phase_intersect_kernel(flush, report):
+    from repro_torch.core import pipeline
+    from repro_torch.core.pipeline import RenderConfig
+    from repro_torch.kernels import intersect_bin as ib
+    print("== phase 2f: sparse TAIT intersect and binning kernel vs its "
+          "plain version and the dense path (exact)", flush=True)
+    for kname in INTERSECT_KERNELS:
+        lines = ptxas_lines(report, kname)
+        print(f"  {kname}: {'; '.join(lines)}", flush=True)
+    base_cfg = RenderConfig(capacity=1024, chunk=64, window=5,
+                            intersect_method="tait", use_dpes=True,
+                            ldu_blocks=32)
+    rows = []
+    for scene_name, n, width, height in INTERSECT_SCENES:
+        for case, proj, grid, tplan, limit, cull in intersect_inputs(
+                scene_name, n, width, height, base_cfg):
+            cfg = dataclasses.replace(
+                base_cfg, cull_threshold=1.0 if cull else 0.0)
+            keep = None if cull is None else (cull[0] >= cfg.cull_threshold,
+                                              cull[1])
+            call = lambda: pipeline.intersect_and_bin(  # noqa: E731
+                proj, grid, tplan, cfg, limit, cull)    # noqa: B023
+            base = launch_counts()
+            got = call()
+            check(launch_counts(base)["intersect_bin"] == 5,
+                  f"{case}: one call launched the five kernels")
+            pairs_t = ib.intersect_pairs_torch(proj, grid, tplan.tile_ids,
+                                               tplan.slot_active, limit, keep)
+            plain = (ib.select_bins_torch(pairs_t, cfg.capacity),
+                     pairs_t.candidate_pairs, pairs_t.raw_slots,
+                     pairs_t.culled_pairs, pairs_t.slot_active)
+            dense = pipeline.dense_intersect_and_bin(proj, grid, tplan, cfg,
+                                                     limit, cull)
+            torch.cuda.synchronize()
+            full = got[0].count + got[0].overflow
+            r, act = tplan.num_slots, int(tplan.slot_active.sum())
+            print(f"  {case}: N {n}, R {r} ({act} active), stage-1 pairs "
+                  f"{int(got[1])}, binned pairs (count_full) "
+                  f"{int(full.sum())}, largest slot {int(full.max())}, "
+                  f"slots past K {int((full > cfg.capacity).sum())}, "
+                  f"overflow {int(got[0].overflow.sum())}, culled "
+                  f"{int(got[3])}, demoted "
+                  f"{int((tplan.slot_active & ~got[4]).sum())}", flush=True)
+            bad = same_bins(got, plain)
+            check(not bad, f"{case}: every field equals the plain version "
+                  f"(differ: {bad})")
+            bad = same_bins(got, dense)
+            check(not bad, f"{case}: every field equals the dense path "
+                  f"(differ: {bad})")
+            _, syncs = host_syncs(call)
+            check(sum(syncs.values()) == 1,
+                  f"{case}: one host wait a call (sync debug mode: {syncs})")
+            dev_ms, by = device_ms_per_call(call, INTERSECT_KERNELS, 10,
+                                            flush)
+            launch_ms = time_ms(call, 10, flush)
+            dense_call = lambda: pipeline.dense_intersect_and_bin(  # noqa
+                proj, grid, tplan, cfg, limit, cull)            # noqa: B023
+            plain_ms = time_ms(dense_call, 3, flush)
+            _, dense_by = device_ms_per_call(dense_call, None, 3)
+            topk_ms = sum(v for k, v in dense_by.items() if "topk" in k)
+            dense_dev = sum(dense_by.values())
+            # Least bytes: each Gaussian's TAIT inputs read once (mean,
+            # half extents, minor axis: 24 B; r_minor, depth: 8 B; valid,
+            # keep: 2 B), the plan's tile ids, flags and limits (9 B a
+            # slot) and the gate (1 B a tile); the bins written once (5 B
+            # a lane) with count and overflow (8 B a slot).
+            k = min(cfg.capacity, n)
+            nbytes = n * 34 + r * 9 + grid.num_tiles + r * k * 5 + r * 8
+            bound_ms, bound_by = bound(nbytes, 0)
+            print(f"    kernels {dev_ms:.4f} ms device time a call "
+                  f"(profiler, mean of 10; "
+                  + ", ".join(f"{k2} {v:.4f}" for k2, v in by.items())
+                  + f"), {launch_ms:.4f} ms with launches and the host read "
+                  f"(CUDA events, median of 10); dense path {plain_ms:.3f} "
+                  f"ms (CUDA events, median of 3), its kernels "
+                  f"{dense_dev:.3f} ms of which torch.topk {topk_ms:.3f} ms "
+                  f"(profiler, mean of 3); bound {bound_ms:.4f} ms "
+                  f"({bound_by}: {nbytes} B)", flush=True)
+            rows.append(dict(case=case, ms=dev_ms, ms_with_launch=launch_ms,
+                             plain_ms=plain_ms, library_ms=topk_ms,
+                             bound_ms=bound_ms, bound_by=bound_by))
+            del got, plain, pairs_t, dense
+        del proj, grid, tplan, limit, cull
+        free_cuda()
+    key = rows[0]
+    return dict(name="intersect_bin", route="cuda",
+                source="src/repro_torch/csrc/intersect_bin.cu",
+                replaces="no TPU kernel: src/repro/core/intersect.py TAIT "
+                         "masks + src/repro/core/binning.py:47 "
+                         "build_tile_bins (lax.top_k)",
+                max_abs_err=0.0, ms=key["ms"],
+                ms_with_launch=key["ms_with_launch"],
+                plain_ms=key["plain_ms"], bound_ms=key["bound_ms"],
+                bound_by=key["bound_by"], library_ms=key["library_ms"],
+                cases=rows)
 
 
 def phase_profile(scene, cam, poses, cfg):
@@ -3351,7 +3545,8 @@ def main():
                phase_tile_raster_kernel(key_bins[3], flush),
                phase_tile_sort_kernel(key_bins[3], flush),
                phase_ldu_kernel(key_bins, warped_fill_input(
-                   scene, cam, poses, cfg), flush, reports["ldu_fill"])]
+                   scene, cam, poses, cfg), flush, reports["ldu_fill"]),
+               phase_intersect_kernel(flush, reports["intersect_bin"])]
     launches, base = phase_slice(scene, cam, poses, cfg)
     phase_cull(scene, cam, poses, cfg, base)
     phase_ablation(scene, cam, poses, cfg, base)

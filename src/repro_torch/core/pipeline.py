@@ -26,18 +26,21 @@ from repro_torch.core.camera import TILE, Camera
 from repro_torch.core.plan import TilePlan
 from repro_torch.core.projection import preprocess
 from repro_torch.core.raster import RenderOutput, render_plan_slots, untile
+from repro_torch.kernels import intersect_bin
 from repro_torch.obs.metrics import host_syncs
 from repro_torch.obs.trace import annotate
 
-# Where a frame makes the host wait for the device: the active slots'
-# count, and the key-frame flag and frame index copied to the device.
-_SYNC_ACTIVE = host_syncs("pipeline.intersect_and_bin")
+# Where a frame makes the host wait for the device: the intersect's pair
+# total (TAIT) or active slots' count (the other methods), and the
+# key-frame flag and frame index copied to the device.
+_SYNC_INTERSECT = host_syncs("pipeline.intersect_and_bin")
 _SYNC_IS_FULL = host_syncs("pipeline.plan_record")
 _SYNC_FRAME_IDX = host_syncs("pipeline.render_full_frame")
 
-# Gaussian x slot pairs per intersect/bin block: the (N, R) masks and the
-# (R, N) selection keys are built a block of active slots at a time, which
-# bounds the peak memory without changing any mask, bin or count.
+# Gaussian x slot pairs per intersect/bin block of the dense path (the
+# methods other than TAIT): the (N, R) masks and the (R, N) selection keys
+# are built a block of active slots at a time, which bounds the peak
+# memory without changing any mask, bin or count.
 PAIR_BLOCK = 1 << 26
 
 
@@ -122,18 +125,45 @@ def _tile_flag_to_pixels(flag: torch.Tensor, tiles_x: int, tiles_y: int):
     return untile(tiles, tiles_x, tiles_y)
 
 
-def intersect_and_bin(proj, slots, plan: TilePlan, cfg: RenderConfig,
+def intersect_and_bin(proj, grid, plan: TilePlan, cfg: RenderConfig,
                       limit: Optional[torch.Tensor],
                       cull: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Plan-masked intersect, contribution cull and (R, K) binning over
-    the active slots, a block of slots at a time.
+    the plan's active slots on ``grid``.
 
     ``cull`` is ``(prior, gate)`` (core/culling.py) or None for no cull.
     Inactive slots read as the reference computes them: no pairs, empty
     bins (indices 0..K-1, as top-k of an all-masked row gives). Returns
     (bins, candidate_pairs, raw_slots, culled_pairs, slot_active), the
     last with fully-culled slots demoted.
+
+    TAIT goes through ``kernels/intersect_bin.py``: each Gaussian's pairs
+    with the tiles of its box, then each slot's K nearest (the CUDA kernel
+    on CUDA tensors). The other methods (the paper's baselines) test every
+    Gaussian against every active slot, a block of slots at a time. Both
+    wait for the device once a call.
     """
+    if cfg.intersect_method != "tait":
+        return dense_intersect_and_bin(proj, grid, plan, cfg, limit, cull)
+    with annotate("repro.frame/intersect"):
+        keep = None if cull is None else (cull[0] >= cfg.cull_threshold,
+                                          cull[1])
+        pairs = intersect_bin.intersect_pairs(
+            proj, grid, plan.tile_ids, plan.slot_active, limit, keep)
+        _SYNC_INTERSECT.inc()
+    with annotate("repro.frame/bin"):
+        bins = intersect_bin.select_bins(pairs, cfg.capacity)
+    return (bins, pairs.candidate_pairs, pairs.raw_slots, pairs.culled_pairs,
+            pairs.slot_active)
+
+
+def dense_intersect_and_bin(proj, grid, plan: TilePlan, cfg: RenderConfig,
+                            limit: Optional[torch.Tensor],
+                            cull: Optional[Tuple[torch.Tensor,
+                                                 torch.Tensor]] = None):
+    """``intersect_and_bin`` by (N, R) masks and top-k, a block of active
+    slots at a time: the path of the methods other than TAIT, and for
+    TAIT the oracle the sparse path is held to."""
     n = proj.depth.shape[0]
     r, k = plan.num_slots, min(cfg.capacity, n)
     dev = proj.depth.device
@@ -148,7 +178,8 @@ def intersect_and_bin(proj, slots, plan: TilePlan, cfg: RenderConfig,
     culled_pairs = torch.zeros((), **i32)
     slot_active = plan.slot_active.clone()
     active = torch.nonzero(plan.slot_active).squeeze(1)
-    _SYNC_ACTIVE.inc()
+    _SYNC_INTERSECT.inc()
+    slots = intersect.take_tiles(grid, plan.tile_ids)
     rows = max(1, PAIR_BLOCK // max(n, 1))
     for r0 in range(0, active.shape[0], rows):
         ids = active[r0:r0 + rows]
@@ -213,7 +244,7 @@ def render_planned_frame(scene, cam: Camera, plan: TilePlan,
             (cam.num_tiles,), dtype=torch.bool, device=cam.device)
         cull = (cull_prior, gate)
     bins, candidate_pairs, raw_slots, culled_pairs, slot_active = \
-        intersect_and_bin(proj, slots, plan, cfg, limit, cull)
+        intersect_and_bin(proj, grid, plan, cfg, limit, cull)
     plan = plan._replace(slot_active=slot_active)
     # LDU (paper Sec. V-B): post-DPES counts are the workload prediction.
     with annotate("repro.frame/ldu_schedule"):

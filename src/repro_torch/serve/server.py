@@ -24,10 +24,10 @@ devices; where one device divides B (a one-card host, or
 Overlap: the reference dispatches every group asynchronously and waits
 once, so one bucket's device work overlaps the next group's host work.
 In the port every frame still syncs the host once, where the intersect
-lists the plan's active slots (``torch.nonzero`` in
-``pipeline.intersect_and_bin``), so the groups of a round run one after
-another, host and device in turn. The LDU schedule itself runs on the
-device (``kernels/ldu_fill.py``).
+reads its pair total to size the key buffer (``kernels/intersect_bin.py``,
+counted at ``pipeline.intersect_and_bin``), so the groups of a round run
+one after another, host and device in turn. The LDU schedule itself runs
+on the device (``kernels/ldu_fill.py``).
 
 Scenes come from a ``SceneRegistry`` (serve/scenes.py): pass one with
 scenes registered, or pass a bare ``GaussianScene`` and the server
