@@ -1,12 +1,15 @@
 """One run of one cell: find its files by name, drive the program, check
-its frames against the reference, and build the result line.
+what it produced against the reference, and build the result line.
 
 ``BENCHMARK.json`` names each cell's configuration and traffic mix;
 ``configs/<config>.json`` and ``traffic/<traffic>.json`` hold them, the
 mix's ``kind`` names the driver module (``stream``: one closed-loop
-viewer; ``venue``: open-loop viewers served by ``StreamServer``), and
-each per-layer metric is read by ``metrics/<name>.py``'s ``read(obs)``.
-A new cell, configuration, mix or metric is a new file and an entry.
+viewer; ``venue``: open-loop viewers served by ``StreamServer``;
+``lm_train``: the port's train step), and each per-layer metric is read
+by ``metrics/<name>.py``'s ``read(obs)``. A driver module that defines
+``numbers(cell, out)`` gives its own check's numbers; the others' frames
+are held against ``reference/render.py``. A new cell, configuration,
+mix, metric or driver is a new file and an entry.
 """
 from __future__ import annotations
 
@@ -82,14 +85,19 @@ def mix(name: str) -> dict:
     return load_json(HERE / "traffic" / f"{name}.json")
 
 
-def reader(name: str) -> Callable[[dict], Optional[float]]:
-    """``read`` of ``metrics/<name>.py``."""
-    path = HERE / "metrics" / f"{name}.py"
+def load(sub: str, name: str):
+    """The module ``<sub>/<name>.py`` under the benchmark's folder."""
     spec = importlib.util.spec_from_file_location(
-        "lsbench.metrics." + name.replace(".", "_"), path)
+        f"lsbench.{sub}." + name.replace(".", "_").replace("-", "_"),
+        HERE / sub / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(name: str) -> Callable[[dict], Optional[float]]:
+    """``read`` of ``metrics/<name>.py``."""
+    return load("metrics", name).read
 
 
 def applies(metric: dict, cell: str, reported: List[str]) -> bool:
@@ -126,19 +134,29 @@ def make_cell(bench: dict, name: str, seed: int, seconds: float,
     return cell
 
 
+def kind(cell: Cell):
+    """The driver module of the cell's traffic mix."""
+    return importlib.import_module(f"lsbench.{cell.mix['kind']}")
+
+
 def drive(cell: Cell) -> dict:
     """Set up, measure and (with ``trace``) trace the cell; the program's
-    state is gone when this returns, its checked frames kept."""
-    out = importlib.import_module(f"lsbench.{cell.mix['kind']}").run(cell)
+    state is gone when this returns, what the check reads kept."""
+    out = kind(cell).run(cell)
     out.pop("venue", None)
-    out["scene"] = tuple(out["scene"])
+    if "scene" in out:
+        out["scene"] = tuple(out["scene"])
     return out
 
 
 def numbers(cell: Cell, out: dict) -> Dict[str, float]:
-    """The check's numbers: every checked window (and, traced, the
-    slice's windows, whose work the reference also counts) against the
+    """The check's numbers: the driver's own ``numbers(cell, out)`` where
+    it has one; else every checked window (and, traced, the slice's
+    windows, whose work the reference also counts) against the
     reference."""
+    own = getattr(kind(cell), "numbers", None)
+    if own is not None:
+        return own(cell, out)
     obs, scene = out["obs"], out["scene"]
     parts = [check.compare(cell.config, win, check.reference_window(
         scene, cell.config, win)) for win in out["checked"]]
@@ -157,13 +175,17 @@ def numbers(cell: Cell, out: dict) -> Dict[str, float]:
 
 def run_cell(bench: dict, name: str, seed: int, seconds: float, trace: bool,
              device: str, t_process: float, *, cfg: Optional[dict] = None,
-             traffic: Optional[dict] = None) -> dict:
-    """Run ``name`` once; returns the result line (a dict, keys in the
-    contract's order, ``checks`` last)."""
+             traffic: Optional[dict] = None,
+             limits: Optional[Dict[str, float]] = None) -> dict:
+    """Run ``name`` once; returns the result line (a dict: ``correct``,
+    ``attempted``, ``failed``, ``metrics``, ``device``, traced
+    ``breakdown``, ``checks`` last). ``cfg``, ``traffic`` and ``limits``
+    replace the cell's files (tests and probes)."""
     cell = make_cell(bench, name, seed, seconds, trace, device, t_process,
                      cfg=cfg, traffic=traffic)
     out = drive(cell)
-    ok, rows = check.judge(numbers(cell, out), check.load_limits(name))
+    ok, rows = check.judge(numbers(cell, out), check.load_limits(name)
+                           if limits is None else limits)
     e2e = [m["name"] for m in bench["end_to_end"]
            if applies(m, name, list(out["e2e"]))]
     metrics = {}

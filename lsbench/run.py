@@ -36,6 +36,16 @@ def power_limit() -> str:
         else "unknown"
 
 
+def environment() -> None:
+    """Build and kernel caches inside the checkout, no JAX through
+    ``transformers``, and the port's ``src`` on the path."""
+    build = REPO / "build" / "lsbench"
+    os.environ["TORCH_EXTENSIONS_DIR"] = str(build / "torch_extensions")
+    os.environ["TRITON_CACHE_DIR"] = str(build / "triton")
+    os.environ["USE_FLAX"] = "0"
+    sys.path.insert(0, str(REPO / "src"))
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--workload", required=True)
@@ -43,11 +53,7 @@ def main(argv=None) -> int:
     p.add_argument("--seconds", type=float, required=True)
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = p.parse_args(argv)
-    build = REPO / "build" / "lsbench"
-    os.environ["TORCH_EXTENSIONS_DIR"] = str(build / "torch_extensions")
-    os.environ["TRITON_CACHE_DIR"] = str(build / "triton")
-    os.environ["USE_FLAX"] = "0"
-    sys.path.insert(0, str(REPO / "src"))
+    environment()
     import torch
     from lsbench import harness
     bench = harness.benchmark()

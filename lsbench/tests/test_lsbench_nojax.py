@@ -38,6 +38,8 @@ def test_a_run_loads_no_jax():
         "import sys, time; sys.path[:0] = ['src', '.'];"
         "from lsbench.tests.tiny import run_tiny;"
         "run_tiny('tandt-train.walk', seconds=0.5);"
+        "from lsbench.tests.lm_tiny import run_tiny_lm;"
+        "run_tiny_lm(seconds=0.5);"
         "from lsbench import harness;"
         "print(harness.forbidden_modules())")
     out = subprocess.run([sys.executable, "-c", code], cwd=harness.REPO,
