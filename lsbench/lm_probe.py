@@ -1,15 +1,16 @@
 """One run of a training mix on a registered LM configuration of the port,
 through the harness, with the workload entry made in memory: a reading
-of ``tokens_per_s`` and ``setup_s`` before any training cell exists.
+of ``tokens_per_s`` and ``setup_s`` on a configuration that has no cell.
 
     python3 -m lsbench.lm_probe --arch moonshot-v1-16b-a3b --layers 4 \
         --seq-len 8192 --sequences 2 --seed 1 --seconds 40
 
 The configuration is the port's registered one (``configs.get_config``),
 cut to ``--layers``; the mix is ``lm_train`` with ``--warmup-steps`` and
-``--check-steps``. Its check holds the program to ``reference/lm_gqa.py``
-and prints the numbers with no limit: a probe's reading, not a
-correctness result. Prints the result line last, as ``lsbench.run``.
+``--check-steps``. Its check holds the program to its plain reference
+(``reference/lm_decoder.py``) and prints the numbers with no limit: a
+probe's reading, not a correctness result. Prints the result line last,
+as ``lsbench.run``.
 """
 import time
 
@@ -48,7 +49,8 @@ def main(argv=None) -> int:
         return 2
     name = f"{args.arch}-{args.layers}l"
     arch = dataclasses.replace(get_config(args.arch), num_layers=args.layers)
-    cfg = dict(name=name, reference="lm_gqa", arch=dataclasses.asdict(arch))
+    cfg = dict(name=name, arch=dataclasses.asdict(arch),
+               reference="lm_decoder")
     mix = dict(kind="lm_train", seq_len=args.seq_len,
                sequences_per_step=args.sequences,
                warmup_steps=args.warmup_steps, check_steps=args.check_steps,
@@ -61,7 +63,8 @@ def main(argv=None) -> int:
                                    traffic="probe", chips=1, why="probe"))
     lm_train.reporting(bench, workload)
     readings = dict.fromkeys(("loss_rel", "grad_norm_rel", "grad_rel",
-                              "update_rel"), float("inf"))
+                              "update_rel", "leaves_below_dtype"),
+                             float("inf"))
     result = harness.run_cell(bench, workload, args.seed, args.seconds,
                               bool(args.trace), "cuda", T_PROCESS,
                               cfg=cfg, traffic=mix, limits=readings)

@@ -27,14 +27,17 @@ steps through the window, each step timed on the host clock from its
 call to the ``torch.cuda.synchronize()`` after it, until ``--seconds``
 have passed. ``tokens_per_s`` is the tokens of the window's steps over
 the time from the first one's call to the last one's synchronize: whole
-steps, since one may take seconds. ``BENCHMARK.json`` has no entry for it
-until a training cell reports it: that cell's entry brings it
-(``TOKENS_PER_S``, with ``workloads`` and a bound from the cell's runs).
+steps, since one may take seconds. Its entry in ``BENCHMARK.json`` lists
+the training cells that report it; ``reporting`` adds a probe's or a
+test's cell made in memory to that list.
 
 The check (``numbers``), once the program's state is freed: the
 configuration's reference (``loss_and_grads``) and plain AdamW
 (``reference/adamw.py``) follow the same ``check_steps`` steps in
-float32 from the same draw and the same batches. The numbers:
+float32 from the same draw and the same batches, each weight rounded
+after each update to the dtype ``arch["dtype"]`` states (a bfloat16
+weight moves only by whole steps of its precision: a norm's scale of 1
+does not move under an update below 2^-9, on either side). The numbers:
 
 - ``loss_rel``: the largest relative gap of a step's loss;
 - ``grad_norm_rel``: the largest relative gap of a step's gradient norm
@@ -45,7 +48,10 @@ float32 from the same draw and the same batches. The numbers:
 - ``update_rel``: the same of each leaf's change after ``check_steps``
   steps, leaving out leaves whose first gradient in the reference is
   under a thousandth of the median leaf's (they move by round-off
-  alone).
+  alone);
+- ``leaves_below_dtype``: the program's leaves stored in a coarser dtype
+  than ``arch["dtype"]`` states (the reference stores what it states, so
+  such a leaf is a departure, not a rounding both sides share).
 
 ``control`` puts the reference, computed one precision below the one
 ``arch["dtype"]`` states, in the program's place (``lsbench.calibrate``).
@@ -68,22 +74,14 @@ CONTROL = {"float64": "float32", "float32": "tf32", "bfloat16": "float8"}
 SMALL = 0.02        # standard deviation of the embedding and the router
 LEAF_FLOOR = 1e-3   # leaves under this share of the median leaf's gradient
 WEIGHTS, BATCHES = 1, 2
-# ``tokens_per_s``'s end-to-end entry, less its bound and its cells.
-TOKENS_PER_S = dict(name="tokens_per_s", unit="tokens/s", better="higher",
-                    source="host_clock")
 
 
 def reporting(bench: dict, workload: str) -> dict:
-    """``bench`` with ``workload`` among the cells that report
-    ``tokens_per_s``; the entry goes in before ``setup_s`` where
-    ``bench`` has none (a probe's or a test's cell made in memory)."""
-    e2e = bench["end_to_end"]
-    entry = next((m for m in e2e if m["name"] == "tokens_per_s"), None)
-    if entry is None:
-        entry = dict(TOKENS_PER_S, workloads=[])
-        e2e.insert([m["name"] for m in e2e].index("setup_s"), entry)
-    if "workloads" in entry:
-        entry["workloads"] = entry["workloads"] + [workload]
+    """``bench`` with ``workload`` (a probe's or a test's cell made in
+    memory) among the cells that report ``tokens_per_s``."""
+    entry = next(m for m in bench["end_to_end"]
+                 if m["name"] == "tokens_per_s")
+    entry["workloads"] = entry["workloads"] + [workload]
     return bench
 
 
@@ -211,21 +209,17 @@ def run(cell) -> dict:
                    cell.config["arch"], int(mix["sequences_per_step"]),
                    int(mix["seq_len"])))
     if cell.trace:
-        traced: List[float] = []
-
         def steps():
             nonlocal state, i
             for _ in range(int(mix["trace_steps"])):
                 b = draw(i)
-                t0 = time.perf_counter()
                 with annotate("repro.train/step"):
                     state, _ = step(state, b)
                 devtrace.sync()
-                traced.append(time.perf_counter() - t0)
                 i += 1
 
         _, sl = devtrace.profiled(steps)
-        obs.update(slice=sl, slice_step_seconds=traced)
+        obs.update(slice=sl, traced_steps=int(mix["trace_steps"]))
         out.update(busy_s=sl.busy_s, window_s=sl.wall_s,
                    breakdown=devtrace.breakdown(sl))
     del state, params, step
@@ -238,8 +232,11 @@ def run(cell) -> dict:
 
 def follow(cell, layout, precision: str) -> dict:
     """The reference's record of the check's steps, computing in
-    ``precision`` from the benchmark's draw of ``layout``."""
+    ``precision`` from the benchmark's draw of ``layout``. Each weight
+    holds what the configuration states: after each update its float32
+    result rounded to ``arch["dtype"]``."""
     arch, mix, dev = cell.config["arch"], cell.mix, cell.device
+    stored = stated_dtype(arch)
     model = harness.load("reference", cell.config["reference"])
     w = {name: t.float() for name, t in weights(layout, cell.seed, dev)}
     m = {k: torch.zeros_like(t) for k, t in w.items()}
@@ -250,6 +247,8 @@ def follow(cell, layout, precision: str) -> dict:
         loss, grads = model.loss_and_grads(arch, w, b["tokens"], b["labels"],
                                            precision)
         norm, clip = adamw.update(w, grads, m, v, i + 1, mix["optimizer"])
+        for t in w.values():
+            t.copy_(t.to(stored))
         rec["loss"].append(loss)
         rec["grad_norm"].append(norm)
         if i == 0:
@@ -286,11 +285,26 @@ def _reference_record(cell, out) -> dict:
     return out["check"]["reference"]
 
 
+def stated_dtype(arch: dict) -> torch.dtype:
+    return getattr(torch, arch["dtype"])
+
+
+def leaves_below(layout, arch: dict) -> int:
+    """Leaves of ``layout`` stored in a coarser dtype than the stated."""
+    eps = torch.finfo(stated_dtype(arch)).eps
+    return sum(torch.finfo(dtype).eps > eps for _, _, dtype in layout)
+
+
 def numbers(cell, out) -> Dict[str, float]:
-    return compare(out["check"]["record"], _reference_record(cell, out))
+    return dict(compare(out["check"]["record"], _reference_record(cell, out)),
+                leaves_below_dtype=float(leaves_below(
+                    out["check"]["layout"], cell.config["arch"])))
 
 
 def control(cell, out) -> Dict[str, float]:
+    """``numbers`` of the reference one precision below the stated in the
+    program's place; it stores the stated dtype, so no leaf is below."""
     low = CONTROL[cell.config["arch"]["dtype"]]
-    return compare(follow(cell, out["check"]["layout"], low),
-                   _reference_record(cell, out))
+    return dict(compare(follow(cell, out["check"]["layout"], low),
+                        _reference_record(cell, out)),
+                leaves_below_dtype=0.0)

@@ -1,24 +1,49 @@
-"""Plain reference of the port's decoders with grouped-query attention:
-the ``dense`` family (SwiGLU or tanh-GELU MLP) and the ``moe`` family
+"""Plain reference of the port's decoders: grouped-query (``gqa``) or
+multi-head latent (``mla``) attention, chosen by ``arch["attention"]``,
+and the ``dense`` family (SwiGLU or tanh-GELU MLP) or the ``moe`` family
 (softmax top-k routing, renormalised over the k chosen; each batch row's
 (token, choice) pairs binned by expert in token order and cut at the
 expert's capacity; the shared experts as one SwiGLU MLP; the
 Switch-style load-balancing loss). That is the shape of the port's
-registered ``yi-9b``, ``starcoder2-7b`` and ``moonshot-v1-16b-a3b``, not
-Moonlight-16B-A3B's published one (latent attention, sigmoid routing, a
-leading dense layer, no token dropped).
+registered ``yi-9b``, ``starcoder2-7b``, ``moonshot-v1-16b-a3b`` and
+``minicpm3-4b``, not Moonlight-16B-A3B's published one (latent attention
+without a query LoRA, sigmoid routing, a leading dense layer, no token
+dropped). Another reference under ``reference/`` may import this one
+(``from lsbench.reference import lm_decoder``) and replace a part.
 
 The model, from the configuration's ``arch`` (the port's ``ArchConfig``
-fields): the token embedding; per layer ``x += attn(rmsnorm(x))`` and
-``x += mlp(rmsnorm(x))``; a final RMSNorm and the output head (the
-embedding's transpose where tied). Attention: q, k, v projections
-(``wq`` (d, h, k), ``wk``/``wv`` (d, g, k)), rotary embedding of the
-split halves at positions 0.., causal softmax scaled by 1/sqrt(k), head
-i reading kv group i // (h / g), and ``wo`` (h, k, d). The objective is
-the mean next-token cross-entropy plus ``AUX_WEIGHT`` times the layers'
-load-balancing losses, each ``sum_e share_e * load_e * E / k`` over the
-batch (share: mean router probability; load: mean count of the expert
-among a token's k choices).
+fields), as ``models/model.py`` and ``models/layers.py`` compute it: the
+token embedding; per layer ``x += attn(rmsnorm(x))`` and ``x +=
+mlp(rmsnorm(x))``; a final RMSNorm and the output head (``lm_head``, or
+the embedding's transpose where tied). RMSNorm is ``x / sqrt(mean(x^2)
++ eps) * scale``; rotary embedding rotates the split halves (x1, x2) at
+positions 0..S-1 by angles ``pos / theta^(2i / width)``.
+
+- GQA: q, k, v projections (``wq`` (d, h, k), ``wk``/``wv`` (d, g,
+  k)), rotary q and k, causal softmax scaled by 1/sqrt(k), head i reading
+  kv group i // (h / g), and ``wo`` (h, k, d).
+- MLA: the query ``cq = rmsnorm(q_norm, x w_dq)`` (the query LoRA, rank
+  ``q_lora_rank``), ``q = cq w_uq`` (``w_uq`` (r, h, nope + rope)), split
+  into ``q_nope`` (the first ``nope_head_dim``) and ``q_rope`` (the
+  rest); the key and value latent ``ckv = rmsnorm(kv_norm, x w_dkv)``
+  (rank ``kv_lora_rank``), each head's ``k_nope = ckv w_uk`` and ``v =
+  ckv w_uv``; the decoupled rotary key ``kr = x w_kr`` (``rope_head_dim``
+  wide), one for all heads; rotary ``q_rope`` and ``kr``; scores
+  ``(q_nope . k_nope + q_rope . kr) / sqrt(nope + rope)``, causal softmax,
+  ``out = probs v`` and ``y = out wo`` (``wo`` (h, v, d)).
+
+The objective is the mean next-token cross-entropy plus ``AUX_WEIGHT``
+times the layers' load-balancing losses, each ``sum_e share_e * load_e
+* E / k`` over the batch (share: mean router probability; load: mean
+count of the expert among a token's k choices).
+
+Departures from MiniCPM3-4B as published (openbmb/MiniCPM3-4B), shared
+with the program, none of which changes a width or a count of
+operations: no muP-style scalars (``scale_emb`` on the embedding,
+``scale_depth / sqrt(layers)`` on each residual branch, the logits over
+``hidden_size / dim_model_base``); no long-context scaling of the rotary
+frequencies (the plain ``rope_theta`` ones at every position); random
+weights drawn from the seed, not the trained ones.
 
 ``loss_and_grads(arch, weights, tokens, labels, precision)`` gives the
 batch's mean cross-entropy and the objective's gradient for every weight
@@ -28,12 +53,12 @@ rounded to bfloat16) or ``float8`` (operands rounded to float8 e4m3 with
 a per-tensor scale, the product in float32). Norms, rotary angles,
 softmax, routing and the loss are float32 in every precision.
 
-It runs ``rows`` batch rows at a time, each layer under
-``torch.utils.checkpoint``, attention and the loss by blocks of
-positions, so that it fits beside its own optimizer state. The
-load-balancing loss couples the rows through each expert's load over
-the whole batch, which a first pass without gradients counts. Imports
-only torch and math.
+It runs ``rows`` batch rows at a time, each layer and each block of the
+loss under ``torch.utils.checkpoint``, attention and the loss by blocks
+of positions, so that it fits beside float32 weights, one gradient and
+two moments. The load-balancing loss couples the rows through each
+expert's load over the whole batch, which a first pass without
+gradients counts. Imports only torch and math.
 """
 from __future__ import annotations
 
@@ -97,25 +122,65 @@ def rope(x: torch.Tensor, theta: float) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
 
 
-def attention(p, x, arch, precision):
+def causal_blocks(scores, v, s, eq, precision):
+    """``probs v`` by blocks of ``BLOCK`` query rows: ``scores(q0, q1)``
+    gives the rows' scaled scores (B, H, q1 - q0, q1) against keys 0..q1,
+    ``v`` (B, S, H, V) the values; (B, S, H, V)."""
+    outs = []
+    for q0 in range(0, s, BLOCK):
+        q1 = min(q0 + BLOCK, s)
+        device = v.device
+        causal = (torch.arange(q1, device=device)[None, :]
+                  <= torch.arange(q0, q1, device=device)[:, None])
+        probs = torch.softmax(scores(q0, q1).masked_fill(~causal,
+                                                         -math.inf), -1)
+        outs.append(prod(eq, probs, v[:, :q1], precision))
+    return torch.cat(outs, 1)
+
+
+def gqa_attention(p, x, arch, precision):
     h, g = arch["num_heads"], arch["num_kv_heads"]
     q = rope(prod("bsd,dhk->bshk", x, p["wq"], precision), arch["rope_theta"])
     k = rope(prod("bsd,dgk->bsgk", x, p["wk"], precision), arch["rope_theta"])
     v = prod("bsd,dgk->bsgk", x, p["wv"], precision)
     k = k.repeat_interleave(h // g, dim=2)
     v = v.repeat_interleave(h // g, dim=2)
-    s = x.shape[1]
     scale = 1.0 / math.sqrt(q.shape[-1])
-    outs = []
-    for q0 in range(0, s, BLOCK):
-        q1 = min(q0 + BLOCK, s)
-        sc = prod("bqhk,bthk->bhqt", q[:, q0:q1], k[:, :q1], precision)
-        causal = (torch.arange(q1, device=x.device)[None, :]
-                  <= torch.arange(q0, q1, device=x.device)[:, None])
-        probs = torch.softmax((sc * scale).masked_fill(~causal, -math.inf),
-                              -1)
-        outs.append(prod("bhqt,bthk->bqhk", probs, v[:, :q1], precision))
-    return prod("bshk,hkd->bsd", torch.cat(outs, 1), p["wo"], precision)
+
+    def scores(q0, q1):
+        return prod("bqhk,bthk->bhqt", q[:, q0:q1], k[:, :q1],
+                    precision) * scale
+
+    out = causal_blocks(scores, v, x.shape[1], "bhqt,bthk->bqhk", precision)
+    return prod("bshk,hkd->bsd", out, p["wo"], precision)
+
+
+def mla_attention(p, x, arch, precision):
+    nd, eps = arch["nope_head_dim"], arch["norm_eps"]
+    theta = arch["rope_theta"]
+    cq = rmsnorm(p["q_norm"], prod("bsd,dc->bsc", x, p["w_dq"], precision),
+                 eps)
+    q = prod("bsc,chk->bshk", cq, p["w_uq"], precision)
+    q_nope, q_rope = q[..., :nd], rope(q[..., nd:], theta)
+    ckv = rmsnorm(p["kv_norm"], prod("bsd,dc->bsc", x, p["w_dkv"],
+                                     precision), eps)
+    k_nope = prod("btc,chn->bthn", ckv, p["w_uk"], precision)
+    v = prod("btc,chv->bthv", ckv, p["w_uv"], precision)
+    kr = rope(prod("bsd,dr->bsr", x, p["w_kr"], precision)[:, :, None],
+              theta)[:, :, 0]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+
+    def scores(q0, q1):
+        return (prod("bqhn,bthn->bhqt", q_nope[:, q0:q1], k_nope[:, :q1],
+                     precision)
+                + prod("bqhr,btr->bhqt", q_rope[:, q0:q1], kr[:, :q1],
+                       precision)) * scale
+
+    out = causal_blocks(scores, v, x.shape[1], "bhqt,bthv->bqhv", precision)
+    return prod("bshv,hvd->bsd", out, p["wo"], precision)
+
+
+ATTENTION = {"gqa": gqa_attention, "mla": mla_attention}
 
 
 def mlp(p, x, kind, precision):
@@ -173,7 +238,8 @@ def layer(p, x, arch, precision):
     """One block: (x, the router probabilities summed over the rows'
     tokens (E,), the count of each expert among the rows' choices (E,))."""
     eps = arch["norm_eps"]
-    x = x + attention(p["attn"], rmsnorm(p["ln1"], x, eps), arch, precision)
+    attn = ATTENTION[arch["attention"]]
+    x = x + attn(p["attn"], rmsnorm(p["ln1"], x, eps), arch, precision)
     hid = rmsnorm(p["ln2"], x, eps)
     if arch["family"] != "moe":
         return x + mlp(p["mlp"], hid, arch["mlp_type"], precision), None, None
@@ -185,15 +251,24 @@ def layer(p, x, arch, precision):
     return x + y, probs.sum((0, 1)), count
 
 
+def nll_block(final_norm, head, x, labels, arch, precision):
+    """Sum of the next-token NLL over a block of positions."""
+    logits = prod("bsd,dv->bsv", rmsnorm(final_norm, x, arch["norm_eps"]),
+                  head, precision)
+    return (torch.logsumexp(logits, -1) - torch.gather(
+        logits, -1, labels[..., None].long())[..., 0]).sum()
+
+
 def nll_sum(final_norm, head, x, labels, arch, precision):
     """Sum over the rows' tokens of the next-token NLL, by blocks of
-    positions."""
+    positions, each recomputed in the backward (a block's logits, not
+    all of them, are alive at a time)."""
     total = x.new_zeros(())
     for s0 in range(0, x.shape[1], BLOCK):
-        xs = rmsnorm(final_norm, x[:, s0:s0 + BLOCK], arch["norm_eps"])
-        logits = prod("bsd,dv->bsv", xs, head, precision)
-        total = total + (torch.logsumexp(logits, -1) - torch.gather(
-            logits, -1, labels[:, s0:s0 + BLOCK, None].long())[..., 0]).sum()
+        args = (final_norm, head, x[:, s0:s0 + BLOCK],
+                labels[:, s0:s0 + BLOCK], arch, precision)
+        total = total + (checkpoint(nll_block, *args, use_reentrant=False)
+                         if torch.is_grad_enabled() else nll_block(*args))
     return total
 
 
@@ -209,13 +284,25 @@ def nest(flat: Dict[str, torch.Tensor]) -> dict:
     return out
 
 
+def supported(arch) -> None:
+    """Refuse a shape this reference does not compute."""
+    mla = arch["attention"] == "mla"
+    if arch["attention"] not in ATTENTION \
+            or arch["family"] not in ("dense", "moe") \
+            or (mla and (arch["family"] != "dense"
+                         or arch["mlp_type"] != "swiglu"
+                         or not arch["q_lora_rank"])):
+        raise NotImplementedError(
+            f"lm_decoder computes GQA dense and moe decoders and dense "
+            f"SwiGLU MLA decoders with a query LoRA, not {arch['attention']} "
+            f"{arch['family']} {arch['mlp_type']} q_lora_rank "
+            f"{arch.get('q_lora_rank')}")
+
+
 def forward(p, tokens, labels, arch, precision, load=None):
     """(NLL summed over the rows, the load-balancing terms summed over the
     layers, each expert's count per layer)."""
-    if arch["attention"] != "gqa" or arch["family"] not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"lm_gqa is the reference of GQA dense and moe decoders, not "
-            f"{arch['attention']} {arch['family']}")
+    supported(arch)
     x = p["embed"][tokens.long()]
     aux, counts = x.new_zeros(()), []
     n_layers = len(p["layers"])

@@ -1,6 +1,6 @@
 """A tiny training cell for CPU tests: the port's ``-smoke`` size of a
-registered LM configuration under an ``lm_train`` mix, with the
-configuration's reference ``lm_gqa`` (the port's GQA and MoE decoders)."""
+registered LM configuration under an ``lm_train`` mix, with its plain
+reference ``lm_decoder``."""
 import dataclasses
 import time
 
@@ -11,9 +11,10 @@ OPTIMIZER = dict(peak_lr=1e-3, warmup_steps=0, total_steps=1000,
 # seq_len 40 and 300: sound runs read at most 1.4e-7, 7.4e-7, 1.6e-6 and
 # 1.6e-6; the program in bfloat16 at least 2.7e-4, 1.8e-3, 4.3e-3 and
 # 0.10; one leaf's update scaled by 1.001 a step reads 1.2e-4 in
-# grad_norm_rel and 6.1e-3 in update_rel.
+# grad_norm_rel and 6.1e-3 in update_rel. A leaf stored below the stated
+# dtype is counted exactly.
 LIMITS = dict(loss_rel=1e-5, grad_norm_rel=1e-5, grad_rel=1e-4,
-              update_rel=1e-4)
+              update_rel=1e-4, leaves_below_dtype=0)
 
 
 def tiny_lm(arch: str = "moonshot-v1-16b-a3b", **mix_changes):
@@ -23,8 +24,9 @@ def tiny_lm(arch: str = "moonshot-v1-16b-a3b", **mix_changes):
     from repro_torch.configs import get_config
     bench = harness.benchmark()
     name = f"{arch}-smoke"
-    cfg = dict(name=name, source="test", reference="lm_gqa",
-               arch=dataclasses.asdict(get_config(name)))
+    fields = dataclasses.asdict(get_config(name))
+    cfg = dict(name=name, source="test", arch=fields,
+               reference="lm_decoder")
     mix = dict(kind="lm_train", why="test", seq_len=40,
                sequences_per_step=2, warmup_steps=3, check_steps=2,
                trace_steps=1, optimizer=dict(OPTIMIZER))

@@ -3,6 +3,8 @@ entries alone: nothing of the harness is edited."""
 import json
 import shutil
 
+import pytest
+
 from lsbench import check, harness, lm_train
 from lsbench.tests.tiny import tiny
 
@@ -55,11 +57,11 @@ def test_new_files_make_a_training_cell(tmp_path, monkeypatch):
     for sub in ("configs", "traffic", "metrics", "limits", "reference"):
         shutil.copytree(harness.HERE / sub, root / sub)
     bench, cfg, mix = tiny_lm()
-    cfg.update(name="tiny-moe", reference="tiny_gqa")
+    cfg.update(name="tiny-moe", reference="tiny_decoder")
     (root / "configs" / "tiny-moe.json").write_text(json.dumps(cfg))
     (root / "traffic" / "pretrain.json").write_text(json.dumps(mix))
-    shutil.copy(root / "reference" / "lm_gqa.py",
-                root / "reference" / "tiny_gqa.py")
+    (root / "reference" / "tiny_decoder.py").write_text(
+        "from lsbench.reference.lm_decoder import *  # noqa: F401,F403\n")
     (root / "limits" / "tiny-moe.pretrain.json").write_text(json.dumps(
         {k: {"limit": v} for k, v in LIMITS.items()}))
     bench["configs"].append({"name": "tiny-moe", "source": "test",
@@ -82,3 +84,86 @@ def test_new_files_make_a_training_cell(tmp_path, monkeypatch):
                            0.0, cfg=scene_cfg, traffic=walk)
     assert list(res["metrics"]) == ["frames_per_s", "frame_ms_p95",
                                     "setup_s"]
+
+
+TRAIN_CELL = "minicpm3-4b.train4k"
+TRAIN_METRICS = ("tokens_per_s", "step_mfu.train",
+                 "device_idle_share.train")
+
+
+def _tiny_train_cell():
+    """The committed training cell's names, files and limits, with the
+    configuration's ``-smoke`` arch and short sequences (a CPU's size)."""
+    from lsbench.tests.lm_tiny import tiny_lm
+    bench = harness.benchmark()
+    _, cfg, _ = tiny_lm("minicpm3-4b")
+    cfg["reference"] = harness.config("minicpm3-4b")["reference"]
+    mix = dict(harness.mix(harness.workload(bench, TRAIN_CELL)["traffic"]),
+               seq_len=48)
+    return bench, cfg, mix
+
+
+def test_the_training_cell_reports_its_metrics(monkeypatch):
+    """``minicpm3-4b.train4k``'s lines carry ``tokens_per_s`` and
+    ``setup_s``, and traced, the two readers' metrics (the CPU has no
+    device operations, so the slice's busy time stands in for them)."""
+    from lsbench import devtrace
+    bench, cfg, mix = _tiny_train_cell()
+    res = harness.run_cell(bench, TRAIN_CELL, 2 ** 31 + 9, 0.3, False,
+                           "cpu", 0.0, cfg=cfg, traffic=mix)
+    assert res["correct"], res["checks"]
+    assert list(res["metrics"]) == ["tokens_per_s", "setup_s"]
+    assert set(res["checks"]) == set(check.load_limits(TRAIN_CELL))
+    real = devtrace.profiled
+
+    def busy(fn):
+        out, sl = real(fn)
+        return out, sl._replace(busy_s=sl.wall_s / 4)
+
+    monkeypatch.setattr(devtrace, "profiled", busy)
+    res = harness.run_cell(bench, TRAIN_CELL, 2 ** 31 + 9, 0.3, True,
+                           "cpu", 0.0, cfg=cfg, traffic=mix)
+    assert list(res["metrics"]) == ["step_mfu.train",
+                                    "device_idle_share.train"]
+    assert 0 < res["metrics"]["device_idle_share.train"]["value"] < 100
+    assert 0 < res["metrics"]["step_mfu.train"]["value"] < 100
+
+
+def test_training_readers_take_the_untraced_steps():
+    """Both readers divide by the window's untraced step times, not by
+    the traced steps' wall time, which the profiler stretches: 2 traced
+    steps busy 6 s in all over untraced steps of 4, 4 and 5 s are idle
+    25 %, and 3 steps of 1.2e15 operations in 13 s are 28.0 % of 989
+    TFLOP/s."""
+    from lsbench import devtrace, peaks
+    sl = devtrace.Slice(wall_s=20.0, busy_s=6.0, stage_s={}, op_s={},
+                        gaps=[], device_ops=10)
+    obs = dict(kind="lm_train", slice=sl, traced_steps=2,
+               step_seconds=[4.0, 4.0, 5.0], flops_per_step=1.2e15)
+    assert harness.reader("device_idle_share.train")(obs) == 25.0
+    assert harness.reader("step_mfu.train")(obs) == pytest.approx(
+        3 * 1.2e15 / 13.0 / peaks.BF16_FLOPS_PER_S * 100.0)
+
+
+def test_no_scene_cell_gains_a_training_metric():
+    bench = harness.benchmark()
+    e2e = [m["name"] for m in bench["end_to_end"]]
+    for w in bench["workloads"]:
+        if w["name"] == TRAIN_CELL:
+            continue
+        reported = [m["name"] for m in bench["end_to_end"]
+                    if harness.applies(m, w["name"], e2e)]
+        reported += [m["name"] for m in bench["per_layer"]
+                     if harness.applies(m, w["name"], reported)]
+        assert not set(reported) & set(TRAIN_METRICS), w["name"]
+
+
+def test_training_readers_read_nothing_without_the_device():
+    """On a traced CPU run the trace holds no device operation: the
+    readers return nothing rather than a share of the card's peak."""
+    bench, cfg, mix = _tiny_train_cell()
+    res = harness.run_cell(bench, TRAIN_CELL, 2 ** 31 + 9, 0.3, True,
+                           "cpu", 0.0, cfg=cfg, traffic=mix)
+    assert res["correct"] and res["metrics"] == {}
+    for name in TRAIN_METRICS[1:]:
+        assert harness.reader(name)({"kind": "stream"}) is None

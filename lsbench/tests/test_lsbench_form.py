@@ -76,3 +76,20 @@ def test_every_list_of_cells_names_cells_and_every_cell_reports():
                   if harness.applies(m, cell, reported)]
         assert layers, cell
         assert all(m["moves"] in reported for m in layers), cell
+
+
+def test_every_name_has_its_files():
+    """Each configuration's file and plain reference, each cell's mix and
+    limits, and each per-layer metric's reader are where the harness
+    looks for them by name."""
+    bench = harness.benchmark()
+    for c in bench["configs"]:
+        assert (harness.REPO / c["file"]).is_file(), c["name"]
+        ref = harness.config(c["name"]).get("reference")
+        if ref is not None:
+            assert (harness.HERE / "reference" / f"{ref}.py").is_file()
+    for w in bench["workloads"]:
+        assert (harness.HERE / "traffic" / f"{w['traffic']}.json").is_file()
+        assert (harness.HERE / "limits" / f"{w['name']}.json").is_file()
+    for m in bench["per_layer"]:
+        assert callable(harness.reader(m["name"])), m["name"]

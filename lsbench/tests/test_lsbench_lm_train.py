@@ -174,7 +174,7 @@ def test_traced_run_gives_the_readers_their_obs():
     obs = out["obs"]
     assert obs["kind"] == "lm_train"
     assert isinstance(obs["slice"], devtrace.Slice)
-    assert len(obs["slice_step_seconds"]) == mix["trace_steps"]
+    assert obs["traced_steps"] == mix["trace_steps"]
     assert obs["flops_per_step"] == peaks.lm_train_flops(
         cfg["arch"], mix["sequences_per_step"], mix["seq_len"])
     assert obs["tokens_per_step"] == 80 and len(obs["step_seconds"]) >= 1
