@@ -5,8 +5,8 @@
 
 Phases (each prints its own lines; a failed check exits non-zero):
 
-1. Device: the card's name and power limit, the six kernel libraries
-   built from ``src/repro_torch`` (one nvcc per ``csrc/*.cu``, all six
+1. Device: the card's name and power limit, the seven kernel libraries
+   built from ``src/repro_torch`` (one nvcc per ``csrc/*.cu``, all seven
    started together), their build times and ptxas lines.
 2. Kernels vs their plain PyTorch versions on the card, at the main
    paths' shapes: the first key frame's real (R = 8160, K = 1024) bins
@@ -132,7 +132,26 @@ Phases (each prints its own lines; a failed check exits non-zero):
    rate), MFU (6 N D over the step time at the bf16 peak), tokens/s and
    peak memory; one step profiled (launches, idle share, top kernels),
    one counted under ``FlopCounterMode`` (phase 9b's reference) and one
-   more split into forward, backward and optimizer.
+   more split into forward, backward and optimizer. Then the same state
+   at the train4k cell's batch, 2 x 4,096, where every layer's attention
+   takes the flash kernel: two steps timed, the second counted
+   (``flash_attention`` called 124 times, 124 forward and 124 backward
+   launches: 62 layers, forward and recompute, two backward kernels a
+   layer), and their peak memory; ``lsbench``'s train4k cell times the
+   step.
+7a. The flash attention kernel (``csrc/flash_attention.cu``) at MiniCPM3's
+   train4k shape (B 2, S 4,096, 40 heads, K 96, Kv 64, bf16, causal; k and
+   v as MLA's transposed views, as the train step passes them): its three
+   kernels' ptxas lines, shared memory and occupancy; the forward and all
+   three gradients against the chunk loop (the plain version) in bf16
+   and in float32: by norm, each at least as close to the float32 one as
+   the bf16 loop and within FLASH_REL_TOL of it; the forward's device ms
+   (calls queued between CUDA events) against its bound (the causal
+   products at the bf16 peak) and with its launch, the backward's against
+   twice the bound; the chunk loop's ms and
+   ``F.scaled_dot_product_attention``'s (the library yardstick, never
+   called by the port). ``python3 chip_smoke.py --only 7a`` runs phase 1
+   and this phase alone.
 7b. The four registered configs at full width, depth cut to
    TRAIN_CHECK_LAYERS layers, float32 with TF32 off: one train step with
    ``remat="full"`` against ``"none"`` (loss, gradients and updated
@@ -250,6 +269,22 @@ def time_ms(fn, runs, flush):
     return statistics.median(times)
 
 
+def queued_ms(fn, runs):
+    """Device ms a call of ``fn``: ``runs`` calls queued back to back
+    between two CUDA events, for calls whose kernels run far longer than
+    their host work, so that the card never waits for the host."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
+
+
 def kernel_ms(fn, kernel, runs, flush):
     """Median device duration (ms) of the kernel whose name contains
     ``kernel``, over ``runs`` calls of ``fn`` (L2 flushed before each),
@@ -339,8 +374,9 @@ def print_occupancy(what, lines, threads, smem):
 
 def phase_device():
     from concurrent.futures import ThreadPoolExecutor
-    from repro_torch.kernels import (intersect_bin, ldu_fill, preprocess,
-                                     raster_plan, raster_tile, tile_sort)
+    from repro_torch.kernels import (flash_attention, intersect_bin,
+                                     ldu_fill, preprocess, raster_plan,
+                                     raster_tile, tile_sort)
     print("== phase 1: device", flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -352,7 +388,7 @@ def phase_device():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     mods = (preprocess, raster_plan, raster_tile, tile_sort, ldu_fill,
-            intersect_bin)
+            intersect_bin, flash_attention)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as pool:
         builds = [pool.submit(m.build) for m in mods]
@@ -2769,12 +2805,55 @@ def phase_train_full(smi):
               f"{1 - ms / wall_ms:.3f}", flush=True)
     print(f"  ({placed} of {len(kernels)} kernels placed in a part)",
           flush=True)
-    del prof, events, kernels, state, out, steps, named
+    del prof, events, kernels, named
+    flash_launches = flash_steps(cfg, state, step_fn, smi)
+    del state, out, steps
     free_cuda()
     return {"step_ms": step_ms, "bound_ms": bound_ms, "mfu": mfu,
             "tok_per_s": tokens / step_ms * 1e3, "peak_gb": peak,
             "launches": n_kernels, "idle": idle, "losses": losses,
-            "flops_counted": counted, "bound_flops": flops}
+            "flops_counted": counted, "bound_flops": flops,
+            "flash_launches": flash_launches}
+
+
+def flash_steps(cfg, state, step_fn, smi):
+    """Two steps of phase 7's state at the train4k cell's batch (2 x
+    4,096), where every layer's attention, forward, recompute and
+    backward, takes the flash kernel: both timed, the second counted by
+    the kernel's launch counters. Returns its launches."""
+    from repro_torch.kernels import flash_attention as FK
+    from repro_torch.models import layers as L
+    from repro_torch.train import data as D
+    b, s = FLASH_SHAPE[:2]
+    data = D.DataConfig(batch_size=b, seq_len=s, vocab_size=cfg.vocab_size,
+                        seed=SEED)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(2):
+        fwd0, bwd0 = FK._FWD.value, FK._BWD.value
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with CallCounter(L, "flash_attention") as calls:
+            start.record()
+            state, m = step_fn(state, D.batch_at(data, i))
+            end.record()
+            end.synchronize()
+        times.append(start.elapsed_time(end))
+    fwd, bwd = FK._FWD.value - fwd0, FK._BWD.value - bwd0
+    n = cfg.num_layers
+    print(f"  {TRAIN_ARCH} train steps at {b} x {s} (remat {cfg.remat!r}): "
+          f"{times[0]:.3f}, {times[1]:.3f} ms (CUDA events), "
+          f"{b * s / times[1] * 1e3:.1f} tokens/s at the second; loss "
+          f"{float(m['loss']):.4f}; the second's flash_attention calls "
+          f"{calls.calls}, kernel launches forward {int(fwd)}, backward "
+          f"{int(bwd)}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({smi})",
+          flush=True)
+    check(calls.calls == 2 * n and fwd == 2 * n and bwd == 2 * n,
+          f"every layer's attention through the kernel: {2 * n} forward "
+          f"launches ({n} layers, forward and recompute), {n} backward calls "
+          f"of two launches each")
+    return int(fwd + bwd)
 
 
 def max_rel_leaf_err(got, want):
@@ -2785,6 +2864,156 @@ def max_rel_leaf_err(got, want):
         err = float((got[k] - want[k]).abs().max())
         worst = max(worst, err / scale if scale > 0 else err)
     return worst
+
+
+# MiniCPM3's attention at the benchmark's train4k cell: (B, S, heads, Hq,
+# key width 64 + 32, value width 64).
+FLASH_SHAPE = (2, 4096, 40, 1, 96, 64)
+FLASH_RUNS = 20
+# The kernel's forward and gradients against the float32 chunk loop, by
+# norm: bf16 outputs round once (up to 2^-9 relative, ~1.6e-3 over a
+# tensor's norm) and dS rounds to bf16 before dq and dk, as the chunk
+# loop's autograd rounds it (tests/test_torch_flash_card.py).
+FLASH_REL_TOL = 4e-3
+FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                 "flash_bwd_dkv_kernel")
+
+
+def causal_flops(b, s, heads, d, dv):
+    """Operations of the two products over the causal (query, key) pairs,
+    2 (d + dv) a pair, as ``lsbench.peaks.lm_train_flops`` counts them."""
+    return 2.0 * b * heads * s * (s + 1) / 2 * (d + dv)
+
+
+def flash_inputs(seed):
+    """q (B,S,H,1,K) and k, v as MLA passes them: (B,H,T,·) views of
+    (B,T,H,·) tensors; dout (B,S,H,1,Kv); all bf16 from ``seed``."""
+    b, s, h, hq, d, dv = FLASH_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    return (draw(b, s, h, hq, d), draw(b, s, h, d).transpose(1, 2),
+            draw(b, s, h, dv).transpose(1, 2), draw(b, s, h, hq, dv))
+
+
+def phase_flash_kernel(smi, report):
+    """7a: the flash attention kernel at MiniCPM3's train4k shape on MLA's
+    transposed k and v: the forward and gradients against the chunk loop in
+    bf16 and float32, device ms against its bound, the chunk loop's and
+    SDPA's ms."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FK
+    from repro_torch.models import layers as L
+    b, s, h, hq, d, dv = FLASH_SHAPE
+    print(f"== phase 7a: flash attention kernel at (B {b}, S {s}, heads {h},"
+          f" Hq {hq}, K {d}, Kv {dv}), bf16, causal ({smi})", flush=True)
+    free_cuda()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for which, name in enumerate(FLASH_KERNELS):
+        lines = ptxas_lines(report, f"{name}I13__nv_bfloat16Li{d}ELi{dv}E")
+        print_occupancy(f"{name}<bf16, {d}, {dv}>", lines, 128,
+                        FK.smem_bytes(which, d, dv))
+    q, k, v, dout = flash_inputs(SEED)
+    scale = d ** -0.5
+    kw = dict(causal=True, scale=scale)
+    flops = causal_flops(b, s, h * hq, d, dv)
+    fwd_bound = flops / BF16_FLOPS_PER_S * 1e3
+
+    def forward():
+        return FK.flash_attention(q, k, v, **kw)
+
+    def both(fn=FK.flash_attention, args=(q, k, v, dout)):
+        qq, kk, vv = (x.detach().requires_grad_() for x in args[:3])
+        out = fn(qq, kk, vv, **kw)
+        return (out.detach(),
+                *torch.autograd.grad(out, (qq, kk, vv), args[3]))
+
+    check(not (k.is_contiguous() or v.is_contiguous())
+          and FK.refusal(q, k, v) is None,
+          "k and v are MLA's transposed views, and the kernel takes them")
+    got = both()
+    loop = both(L.flash_attention_chunked)
+    f32 = both(L.flash_attention_chunked,
+               tuple(x.float() for x in (q, k, v, dout)))
+    for name, g, c, w in zip(("out", "dq", "dk", "dv"), got, loop, f32):
+        err = float((g.float() - w).norm() / w.norm())
+        loop_err = float((c.float() - w).norm() / w.norm())
+        check(err <= loop_err and err < FLASH_REL_TOL,
+              f"{name}: the kernel's error by norm against the float32 chunk"
+              f" loop {err:.3e} <= the bf16 chunk loop's {loop_err:.3e}, "
+              f"< {FLASH_REL_TOL:g} (max abs {max_err(g.float(), w):.3e})")
+    fwd_err = max_err(got[0].float(), f32[0])
+    del got, loop, f32
+
+    # Device time by CUDA events around calls queued back to back, not by
+    # the profiler: after phase 7's profiled steps its trace dropped records
+    # of these launches in all three tries. Each call's host work is far
+    # shorter than its kernels, so the card never waits between calls.
+    _, out32, lse = FK._forward(q, k, v, True, scale, 0, keep=True)
+    with torch.no_grad():
+        fwd_ms = queued_ms(forward, FLASH_RUNS)
+        fwd_launch = time_ms(forward, FLASH_RUNS, flush)
+    keep_ms = queued_ms(lambda: FK._forward(q, k, v, True, scale, 0,
+                                            keep=True), FLASH_RUNS)
+    bwd_ms = queued_ms(lambda: FK._backward(q, k, v, out32, lse, dout, True,
+                                            scale, 0), FLASH_RUNS)
+    both_ms = keep_ms + bwd_ms
+    both_launch = time_ms(both, FLASH_RUNS, flush)
+    del out32, lse
+    print(f"  forward: kernel {fwd_ms:.4f} ms device time ({FLASH_RUNS} "
+          f"calls queued), {fwd_launch:.4f} ms with its launch (CUDA events,"
+          f" median of {FLASH_RUNS}); bound {fwd_bound:.4f} ms "
+          f"({flops / 1e9:.1f} GFLOP of causal products at "
+          f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s): "
+          f"{fwd_ms / fwd_bound:.2f}x the bound", flush=True)
+    print(f"  forward + backward (the forward keeping its float32 output "
+          f"{keep_ms:.4f} ms, then dq and dk / dv {bwd_ms:.4f} ms; "
+          f"{FLASH_RUNS} calls queued): {both_ms:.4f} ms device time, "
+          f"{both_launch:.4f} ms with launches through autograd; backward "
+          f"against twice the bound {2 * fwd_bound:.4f} ms: "
+          f"{bwd_ms / (2 * fwd_bound):.2f}x", flush=True)
+    with torch.no_grad():
+        loop_fwd = time_ms(lambda: L.flash_attention_chunked(q, k, v, **kw),
+                           3, flush)
+    loop_both = time_ms(lambda: both(L.flash_attention_chunked), 3, flush)
+    print(f"  the chunk loop (plain version, 512 x 1,024 chunks, no skip): "
+          f"forward {loop_fwd:.3f} ms, forward + backward {loop_both:.3f} ms "
+          f"(CUDA events, median of 3); kernel / loop {fwd_launch / loop_fwd:.4f}"
+          f", {both_launch / loop_both:.4f}", flush=True)
+    # The library yardstick, never called by the port: SDPA on (B, H, S, ·).
+    qs, ks, vs = (x.squeeze(3).transpose(1, 2) if x.dim() == 5 else x
+                  for x in (q, k, v))
+    try:
+        with torch.no_grad():
+            lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True, scale=scale), FLASH_RUNS, flush)
+
+        def lib_both():
+            qq, kk, vv = (x.detach().requires_grad_() for x in (qs, ks, vs))
+            out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                                 scale=scale)
+            return torch.autograd.grad(out, (qq, kk, vv),
+                                       dout.squeeze(3).transpose(1, 2))
+        lib_both_ms = time_ms(lib_both, FLASH_RUNS, flush)
+        print(f"  library yardstick F.scaled_dot_product_attention: forward "
+              f"{lib_fwd:.4f} ms, forward + backward {lib_both_ms:.4f} ms "
+              f"(CUDA events, median of {FLASH_RUNS})", flush=True)
+    except RuntimeError as err:
+        lib_fwd = None
+        print(f"  library yardstick F.scaled_dot_product_attention: not "
+              f"available at these widths ({str(err)[:120]})", flush=True)
+    del q, k, v, dout, flush
+    free_cuda()
+    # launches: phase 7's counted step at 2 x 4,096 (main sets them)
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="no TPU kernel: src/repro/models/layers.py:101 "
+                         "flash_attention (jnp)",
+                max_abs_err=fwd_err, ms=fwd_ms, ms_with_launch=fwd_launch,
+                plain_ms=loop_fwd, bound_ms=fwd_bound, bound_by="operations",
+                library_ms=lib_fwd, launches=None)
 
 
 def phase_train_checks(smi):
@@ -3518,11 +3747,19 @@ def phase_dryrun_phase7(smi, train):
     return {"flops": r["flops"], "predicted_gb": predicted, "ratio": ratio}
 
 
-def main():
+def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA GPU (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
+    if argv == ["--only", "7a"]:
+        smi, reports = phase_device()
+        flash = phase_flash_kernel(smi, reports["flash_attention"])
+        print(json.dumps({"kernels": [flash]}))
+        return 0
+    if argv:
+        print("usage: chip_smoke.py [--only 7a]", file=sys.stderr)
+        return 2
     from repro_torch.core.camera import make_camera
     from repro_torch.core.pipeline import RenderConfig
     from repro_torch.scenes.synthetic import structured_scene
@@ -3583,6 +3820,8 @@ def main():
               f"{r['launches']} launches, peak {r['peak_gb']:.2f} GB"
               for n, r in families.items()) + f" ({smi})", flush=True)
     train = phase_train_full(smi)
+    kernels.append(phase_flash_kernel(smi, reports["flash_attention"]))
+    kernels[-1]["launches"] = train["flash_launches"]
     dryrun = start_dryrun()
     phase_train_checks(smi)
     phase_dryrun(smi, dryrun)
@@ -3624,4 +3863,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

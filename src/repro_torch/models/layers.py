@@ -30,6 +30,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import flash_attention as _flash_kernel
 from repro_torch.models.sharding_hooks import (batch_placements, constrain,
                                                einsum, get_flag, get_hooks,
                                                on_local, run_local)
@@ -182,18 +183,50 @@ def flash_attention(q, k, v, *, causal: bool, scale: float,
                     q_chunk: int = FLASH_Q_CHUNK,
                     kv_chunk: int = FLASH_KV_CHUNK,
                     causal_skip: bool = False, q_offset: int = 0):
-    """Online-softmax (flash) attention in GQA layout, O(qc*kc) score memory.
+    """Online-softmax (flash) attention in GQA layout.
 
     q (B,S,G,Hq,K), k (B,G,T,K), v (B,G,T,Kv) -> out (B,S,G,Hq,Kv).
     ``q_offset`` is the position of q's first row (a rank's block of the
     query rows).
 
+    Which code computes it follows from the tensors alone
+    (``kernels/flash_attention.route``): the CUDA kernel
+    (``kernels/flash_attention.flash_attention``, which always skips the
+    kv tiles above the causal diagonal and ignores the chunk sizes) takes
+    plain CUDA tensors of bfloat16 whose (key, value) widths are compiled
+    (``kernels/flash_attention.WIDTHS``); the chunk loop
+    (``flash_attention_chunked``, the plain version) takes CPU, fake or
+    meta tensors, float32 and float64. Any other CUDA tensor (another
+    width or type) raises ``ValueError``; nothing falls back after a
+    launch.
+    """
+    if _flash_kernel.route(q, k, v) == "kernel":
+        return _flash_kernel.flash_attention(q, k, v, causal=causal,
+                                             scale=scale, q_offset=q_offset)
+    return flash_attention_chunked(q, k, v, causal=causal, scale=scale,
+                                   q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                   causal_skip=causal_skip,
+                                   q_offset=q_offset)
+
+
+def flash_attention_chunked(q, k, v, *, causal: bool, scale: float,
+                            q_chunk: int = FLASH_Q_CHUNK,
+                            kv_chunk: int = FLASH_KV_CHUNK,
+                            causal_skip: bool = False, q_offset: int = 0):
+    """The plain version of ``flash_attention``: the online softmax over
+    chunk pairs, O(qc*kc) score memory (the reference's loop).
+
     A chunk count falls back to 1 when the length is not a multiple of
-    the chunk (or is shorter). With ``causal_skip`` (and only when
-    ``s == t``) q chunk ``iq`` visits kv chunks ``0..iq``, as the
-    reference's while loop does; the reference's visits past the last kv
-    chunk read a clamped chunk whose keys are all masked and add nothing,
-    so the loop here stops at the last chunk.
+    the chunk (or is shorter). With ``causal_skip`` q chunk ``iq`` visits
+    only the kv chunks that hold a key at or before its last row's
+    position (``q_offset + (iq + 1) * qc - 1``), the rule the kernel's
+    tiles follow. The chunks left out lie wholly above the diagonal:
+    visited, every score there is -1e30, so ``exp`` gives exactly 0 and
+    ``alpha`` exactly 1 (chunk 0 comes first and holds key 0, which every
+    row sees), and the skip changes no bit. Where q and k chunks are equal
+    and ``s == t``, that is chunks ``0..iq``, as the reference's while
+    loop visits; the reference's visits past the last kv chunk read a
+    clamped, fully masked chunk and add nothing.
     """
     b, s, g, hq, _ = q.shape
     t = k.shape[2]
@@ -204,7 +237,7 @@ def flash_attention(q, k, v, *, causal: bool, scale: float,
     kc = t // nk
     dev = q.device
     acc_dtype = torch.promote_types(q.dtype, torch.float32)
-    skip = causal_skip and causal and s == t
+    skip = causal_skip and causal
 
     outs = []
     for iq in range(nq):
@@ -214,7 +247,8 @@ def flash_attention(q, k, v, *, causal: bool, scale: float,
         m = torch.full((b, g, hq, qc), -torch.inf, dtype=acc_dtype,
                        device=dev)
         l = torch.zeros((b, g, hq, qc), dtype=acc_dtype, device=dev)
-        for jk in range(min(iq + 1, nk) if skip else nk):
+        last = q_offset + (iq + 1) * qc - 1
+        for jk in range(min(nk, last // kc + 1) if skip else nk):
             kj = k[:, :, jk * kc:(jk + 1) * kc]              # (B,G,kc,K)
             vj = v[:, :, jk * kc:(jk + 1) * kc]
             scores = torch.einsum("bqghk,bgtk->bghqt", qi, kj) * scale

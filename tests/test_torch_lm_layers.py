@@ -12,6 +12,7 @@ drift are each named in a test: the tanh GELU, RoPE's split halves, the
 flash chunking and its auto switch, the MoE capacity rules, its stable
 sort and run starts, and its drops."""
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +24,7 @@ from repro.configs import get_config as jget
 from repro.models import layers as JL
 from repro.models import sharding_hooks as jhooks
 from repro_torch.configs import get_config as tget
+from repro_torch.kernels import flash_attention as FK
 from repro_torch.models import layers as TL
 from repro_torch.models import sharding_hooks as thooks
 
@@ -186,6 +188,231 @@ def test_flash_attention_parity(case):
     dense = TL._sdpa(torch.tensor(q) * (d ** 0.5 * kw["scale"]),
                      torch.tensor(k), torch.tensor(v), mask)
     _close(got, dense.numpy(), atol=2e-5, rtol=1e-4)
+
+
+# --- the flash kernel: its dispatch and the plain models of its arithmetic --
+
+# where, dtype, key width, value width, and the word of the refusal
+DISPATCH_CASES = {
+    "cpu_bf16_compiled_widths": ("cpu", torch.bfloat16, 96, 64, "devices"),
+    "cpu_float32": ("cpu", torch.float32, 96, 64, "dtypes"),
+    "cpu_float64": ("cpu", torch.float64, 128, 128, "dtypes"),
+    "cpu_bf16_other_widths": ("cpu", torch.bfloat16, 40, 24, "widths"),
+    "fake_cuda_bf16": ("fake_cuda", torch.bfloat16, 96, 64, "subclass"),
+    "fake_cuda_float32": ("fake_cuda", torch.float32, 64, 64, "dtypes"),
+    "fake_cuda_other_widths": ("fake_cuda", torch.bfloat16, 32, 32,
+                               "widths"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DISPATCH_CASES))
+def test_flash_dispatch_takes_the_chunk_loop(case, monkeypatch):
+    """CPU tensors, float32 and float64, widths outside the compiled set
+    and fake CUDA tensors (the dry-run's) take the chunk loop: the result
+    is the chunk loop's (on fake CUDA tensors, which only the card's torch
+    computes on, the loop is called), and neither launch counter moves."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    where, dtype, d, dv, word = DISPATCH_CASES[case]
+    b, s, g = 1, 64, 2
+    kw = dict(causal=True, scale=d ** -0.5, q_chunk=32, kv_chunk=32)
+    before = (FK._FWD.value, FK._BWD.value)
+    if where == "cpu":
+        q, k, v = (torch.tensor(_rand(20 + i, *shape)).to(dtype)
+                   .requires_grad_() for i, shape in enumerate(
+                       ((b, s, g, 1, d), (b, g, s, d), (b, g, s, dv))))
+        assert word in FK.refusal(q, k, v)
+        assert FK.route(q, k, v) == "chunks"
+        got = TL.flash_attention(q, k, v, **kw)
+        assert torch.equal(got, TL.flash_attention_chunked(q, k, v, **kw))
+        torch.autograd.grad(got.sum(), (q, k, v))
+    else:
+        loop = []
+        monkeypatch.setattr(TL, "flash_attention_chunked",
+                            lambda *a, **k_: loop.append(a) or "loop")
+        with FakeTensorMode():
+            q = torch.empty((b, s, g, 1, d), dtype=dtype, device="cuda")
+            k = torch.empty((b, g, s, d), dtype=dtype, device="cuda")
+            v = torch.empty((b, g, s, dv), dtype=dtype, device="cuda")
+            assert word in FK.refusal(q, k, v)
+            assert FK.route(q, k, v) == "chunks"
+            assert TL.flash_attention(q, k, v, **kw) == "loop"
+        assert len(loop) == 1 and loop[0][0] is q
+    assert (FK._FWD.value, FK._BWD.value) == before
+
+
+# q's dtype, k's and v's, key width, value width, and what ``route`` gives
+# (or the word of the ValueError) for plain CUDA tensors
+CARD_ROUTE_CASES = {
+    "bf16_compiled": (torch.bfloat16, torch.bfloat16, 96, 64, "kernel"),
+    "bf16_gqa_64": (torch.bfloat16, torch.bfloat16, 64, 64, "kernel"),
+    "float32": (torch.float32, torch.float32, 80, 80, "chunks"),
+    "float64": (torch.float64, torch.float64, 96, 64, "chunks"),
+    "bf16_uncompiled_widths": (torch.bfloat16, torch.bfloat16, 192, 128,
+                               "widths"),
+    "float16": (torch.float16, torch.float16, 96, 64, "dtypes"),
+    "mixed_float32_bf16": (torch.float32, torch.bfloat16, 96, 64, "dtypes"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CARD_ROUTE_CASES))
+def test_flash_dispatch_on_the_card(case, monkeypatch):
+    """Plain CUDA tensors (here fake ones counted as plain, since the CPU
+    has no card): bfloat16 at a compiled width takes the kernel, float32
+    and float64 the chunk loop, and anything else raises ``ValueError``
+    naming what the kernel is built for, before any launch and without
+    calling the chunk loop."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+    qd, kd, d, dv, want = CARD_ROUTE_CASES[case]
+    monkeypatch.setattr(FK, "PLAIN", FK.PLAIN + (FakeTensor,))
+    loop = []
+    monkeypatch.setattr(TL, "flash_attention_chunked",
+                        lambda *a, **k_: loop.append(a) or "loop")
+    before = (FK._FWD.value, FK._BWD.value)
+    kw = dict(causal=True, scale=d ** -0.5)
+    with FakeTensorMode():
+        q = torch.empty((2, 1024, 4, 1, d), dtype=qd, device="cuda")
+        k = torch.empty((2, 4, 1024, d), dtype=kd, device="cuda")
+        v = torch.empty((2, 4, 1024, dv), dtype=kd, device="cuda")
+        if want in ("kernel", "chunks"):
+            assert FK.route(q, k, v) == want
+            assert (FK.refusal(q, k, v) is None) == (want == "kernel")
+            if want == "chunks":
+                assert TL.flash_attention(q, k, v, **kw) == "loop"
+        else:
+            for fn in (FK.route, functools.partial(TL.flash_attention,
+                                                   **kw)):
+                with pytest.raises(ValueError, match=want) as err:
+                    fn(q, k, v)
+                assert str(FK.WIDTHS) in str(err.value)
+    assert len(loop) == (want == "chunks")
+    assert (FK._FWD.value, FK._BWD.value) == before
+
+
+# Probabilities as the kernel meets them: a row's largest is 1; the others
+# spread over many binades, some far below bf16's 8 bits of 1.
+SPLIT_CASES = {
+    "uniform": lambda r: r.uniform(0, 1, (64, 256)),
+    "softmax_rows": lambda r: np.exp(r.normal(0, 3, (64, 256))
+                                     - 12).clip(max=1.0),
+    "tiny_tail": lambda r: np.exp(-r.uniform(0, 120, (64, 256))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_flash_split_is_exact(case):
+    """A float32 P split into hi + mid + lo of bfloat16 (the kernel's
+    split) sums back to P exactly from 2^-100 up (below, the last part
+    reaches float32's subnormals: off by under 2^-126); the three bf16
+    products, each exact and summed in float32 as the tensor cores sum
+    them, give P V within float32's rounding of the exact product, as the
+    float32 product does. One bf16 product (P rounded to bf16) does
+    not."""
+    rng = np.random.default_rng(7)
+    p = torch.tensor(SPLIT_CASES[case](rng), dtype=torch.float32)
+    v = torch.tensor(rng.normal(size=(256, 32))).bfloat16()
+    parts = FK.split3(p)
+    assert all(x.dtype == torch.bfloat16 for x in parts)
+    whole = sum(x.double() for x in parts)
+    normal = p >= 2.0 ** -100
+    assert torch.equal(whole[normal], p.double()[normal])
+    assert float((whole - p.double()).abs().max()) < 2.0 ** -126
+    exact = p.double() @ v.double()
+    mag = p.double().abs() @ v.double().abs()
+    n, eps = p.shape[1] + 2, 2.0 ** -24
+    bound = n * eps / (1 - n * eps) * mag          # gamma_n |P| |V|
+    split = sum(x.float() @ v.float() for x in parts)
+    assert bool(((split.double() - exact).abs() <= bound).all())
+    assert bool(((p @ v.float()).double() - exact).abs().le(bound).all())
+    one = (p.bfloat16().float() @ v.float()).double()
+    assert float(((one - exact).abs() / bound).max()) > 1.0
+
+
+# (b, s, t, g, hq, d, dv, causal, q_offset)
+FORMULA_CASES = {
+    "mla_causal": (1, 64, 64, 3, 1, 24, 16, True, 0),
+    "gqa_full_rect": (2, 32, 48, 1, 2, 16, 16, False, 0),
+    "offset_rows": (1, 32, 96, 2, 1, 16, 8, True, 64),
+}
+
+
+def _natural_lse(q, k, *, causal, scale, q_offset):
+    scores, mask = FK._scores(q, k, causal=causal, scale=scale,
+                              q_offset=q_offset)
+    if mask is not None:
+        scores = scores.masked_fill(~mask, -torch.inf)
+    return torch.logsumexp(scores, -1)
+
+
+def _chunk_grads(q, k, v, dout, kw):
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    out = TL.flash_attention_chunked(q, k, v, q_chunk=16, kv_chunk=32, **kw)
+    return (out.detach(), *torch.autograd.grad(out, (q, k, v), dout))
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+@pytest.mark.parametrize("case", sorted(FORMULA_CASES))
+def test_flash_backward_formulas(case):
+    """The kernel's backward formulas in plain torch (D from the float32
+    O, P from the log-sum-exp, dS = P (dP - D)) equal autograd through the
+    chunk loop in float64; with dS rounded to bf16 before dq and dk (and
+    float32 elsewhere, as the kernel computes) they come at least as close
+    to the float64 gradients as the chunk loop's autograd in bf16, and
+    within 4e-3 by norm (the outputs' bf16 rounding, ~1.6e-3, and dS's)."""
+    b, s, t, g, hq, d, dv, causal, off = FORMULA_CASES[case]
+    kw = dict(causal=causal, scale=d ** -0.5, q_offset=off)
+    q, k, v, dout = (torch.tensor(_rand(30 + i, *shape)).double()
+                     for i, shape in enumerate(
+                         ((b, s, g, hq, d), (b, g, t, d), (b, g, t, dv),
+                          (b, s, g, hq, dv))))
+    want = _chunk_grads(q, k, v, dout, kw)
+    lse = _natural_lse(q, k, **kw)
+    got = FK.backward_formulas(q, k, v, want[0], lse, dout, **kw)
+    for g_, w in zip(got, want[1:]):
+        torch.testing.assert_close(g_, w, rtol=1e-10, atol=1e-12)
+
+    qb, kb, vb, db = (x.bfloat16() for x in (q, k, v, dout))
+    truth = _chunk_grads(*(x.double() for x in (qb, kb, vb, db)), kw)
+    loop = _chunk_grads(qb, kb, vb, db, kw)
+    q32, k32, v32, d32 = (x.float() for x in (qb, kb, vb, db))
+    o32 = _chunk_grads(q32, k32, v32, d32, kw)[0]
+    kernel = FK.backward_formulas(q32, k32, v32, o32,
+                                  _natural_lse(q32, k32, **kw), d32,
+                                  round_ds=torch.bfloat16, **kw)
+    for name, kg, lg, tg in zip(("dq", "dk", "dv"), kernel, loop[1:],
+                                truth[1:]):
+        err, loop_err = _rel(kg.bfloat16(), tg), _rel(lg, tg)
+        assert err <= loop_err and err < 4e-3, (name, err, loop_err)
+
+
+# (s, t, q_offset, q_chunk, kv_chunk)
+SKIP_CASES = {
+    "square_equal_chunks": (256, 256, 0, 64, 64),
+    "q_finer": (256, 256, 0, 32, 64),
+    "q_coarser": (256, 256, 0, 64, 32),
+    "offset_rows": (128, 384, 256, 32, 64),
+    "offset_not_chunk_aligned": (96, 192, 70, 32, 64),
+    "non_dividing": (96, 96, 0, 64, 64),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(SKIP_CASES))
+def test_flash_causal_skip_bit_for_bit(case, dtype):
+    """Skipping the kv chunks that lie wholly above the diagonal (the
+    kernel's rule: a chunk is visited where it holds a key at or before
+    the q chunk's last position, ``q_offset`` included) changes no bit
+    against the full masked loop."""
+    s, t, off, qc, kc = SKIP_CASES[case]
+    q = torch.tensor(_rand(40, 1, s, 2, 2, 16)).to(dtype)
+    k = torch.tensor(_rand(41, 1, 2, t, 16)).to(dtype)
+    v = torch.tensor(_rand(42, 1, 2, t, 8)).to(dtype)
+    kw = dict(causal=True, scale=0.25, q_chunk=qc, kv_chunk=kc, q_offset=off)
+    full = TL.flash_attention_chunked(q, k, v, causal_skip=False, **kw)
+    skip = TL.flash_attention_chunked(q, k, v, causal_skip=True, **kw)
+    assert torch.equal(skip, full)
 
 
 def _count_flash(monkeypatch):
