@@ -34,23 +34,7 @@ from repro_torch.core.pipeline import (FrameRecord, FrameState,
                                        TrajectoryResult, contrib_enabled,
                                        render_full_frame,
                                        render_sparse_frame, stack_fields)
-from repro_torch.obs.metrics import host_syncs
 from repro_torch.obs.trace import annotate
-
-# Where the engine makes the host wait for the device: host values copied
-# to it (counted only where they are not already there) and per-stream
-# values read back from it.
-_SYNC_INIT = host_syncs("engine.init_carry")
-_SYNC_STACK = host_syncs("engine.stack_carries")
-_SYNC_UNSTACK = host_syncs("engine.unstack_carries")
-_SYNC_BLANK = host_syncs("engine.blank_record")
-_SYNC_STREAMS = host_syncs("engine.render_streams")
-
-
-def _copies_to(x, dev: torch.device) -> bool:
-    """Does putting ``x`` on ``dev`` copy it there (it is not a tensor on
-    ``dev`` already)?"""
-    return not (isinstance(x, torch.Tensor) and x.device == dev)
 
 
 class EngineCarry(NamedTuple):
@@ -95,8 +79,6 @@ def init_carry(cam: Camera, pose: torch.Tensor,
     ``n_gaussians`` sizes the carried prior when
     ``pipeline.contrib_enabled(cfg)``.
     """
-    if _copies_to(pose, cam.device):
-        _SYNC_INIT.inc()
     return EngineCarry(state=_zero_state(cam, n_gaussians),
                        prev_pose=torch.as_tensor(pose, dtype=torch.float32,
                                                  device=cam.device),
@@ -106,7 +88,6 @@ def init_carry(cam: Camera, pose: torch.Tensor,
 def stack_carries(carries: Sequence[EngineCarry]) -> EngineCarry:
     """Per-stream carries -> one carry with fields (B, ...)."""
     dev = carries[0].prev_pose.device
-    _SYNC_STACK.inc()
     return EngineCarry(
         state=stack_fields([c.state for c in carries]),
         prev_pose=torch.stack([c.prev_pose for c in carries]),
@@ -117,7 +98,6 @@ def stack_carries(carries: Sequence[EngineCarry]) -> EngineCarry:
 def unstack_carries(carries: EngineCarry) -> List[EngineCarry]:
     """A stacked carry -> one carry per stream (views, host ``step``)."""
     steps = carries.step.tolist()
-    _SYNC_UNSTACK.inc()
     return [EngineCarry(
         state=FrameState(*(None if f is None else f[i]
                            for f in carries.state)),
@@ -141,7 +121,6 @@ def blank_record(cam: Camera, cfg: RenderConfig,
     dev = cam.device
     i32 = dict(dtype=torch.int32, device=dev)
     zero = torch.zeros((), **i32)
-    _SYNC_BLANK.inc()
     lane_contrib = None
     if contrib_enabled(cfg):
         lane_contrib = torch.zeros((t, min(cfg.capacity, n_gaussians)),
@@ -277,10 +256,6 @@ def render_streams(scene, cam: Camera, poses_batch: torch.Tensor,
     scenes = None if slot_scene is None else list(scene)
     first = scene if scenes is None else scenes[0]
     n = first.means.shape[0] if contrib_enabled(cfg) else None
-    # Given phases and counts are copied to the device unless there, and
-    # read back to the host below: up to two waits each.
-    _SYNC_STREAMS.inc(2 + (phases is not None and _copies_to(phases, dev))
-                      + (counts is not None and _copies_to(counts, dev)))
     phases = stream_phases(b, cfg.window, device=dev) if phases is None \
         else torch.as_tensor(phases, dtype=torch.int32).to(dev)
     counts = torch.full((b,), f, dtype=torch.int32, device=dev) \
@@ -289,9 +264,6 @@ def render_streams(scene, cam: Camera, poses_batch: torch.Tensor,
     if carries is None:
         carries = init_stream_carries(cam, poses_batch, n)
     starts = unstack_carries(carries)
-    # A caller keeps slot_scene on either side; only a GPU's read waits.
-    if isinstance(slot_scene, torch.Tensor) and slot_scene.is_cuda:
-        _SYNC_STREAMS.inc()
     slot_ids = [0] * b if slot_scene is None \
         else torch.as_tensor(slot_scene).tolist()
     ends, frames, records, active = [], [], [], []

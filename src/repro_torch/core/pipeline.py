@@ -27,15 +27,7 @@ from repro_torch.core.plan import TilePlan
 from repro_torch.core.projection import preprocess
 from repro_torch.core.raster import RenderOutput, render_plan_slots, untile
 from repro_torch.kernels import intersect_bin
-from repro_torch.obs.metrics import host_syncs
 from repro_torch.obs.trace import annotate
-
-# Where a frame makes the host wait for the device: the intersect's pair
-# total (TAIT) or active slots' count (the other methods), and the
-# key-frame flag and frame index copied to the device.
-_SYNC_INTERSECT = host_syncs("pipeline.intersect_and_bin")
-_SYNC_IS_FULL = host_syncs("pipeline.plan_record")
-_SYNC_FRAME_IDX = host_syncs("pipeline.render_full_frame")
 
 # Gaussian x slot pairs per intersect/bin block of the dense path (the
 # methods other than TAIT): the (N, R) masks and the (R, N) selection keys
@@ -150,7 +142,6 @@ def intersect_and_bin(proj, grid, plan: TilePlan, cfg: RenderConfig,
                                           cull[1])
         pairs = intersect_bin.intersect_pairs(
             proj, grid, plan.tile_ids, plan.slot_active, limit, keep)
-        _SYNC_INTERSECT.inc()
     with annotate("repro.frame/bin"):
         bins = intersect_bin.select_bins(pairs, cfg.capacity)
     return (bins, pairs.candidate_pairs, pairs.raw_slots, pairs.culled_pairs,
@@ -178,7 +169,6 @@ def dense_intersect_and_bin(proj, grid, plan: TilePlan, cfg: RenderConfig,
     culled_pairs = torch.zeros((), **i32)
     slot_active = plan.slot_active.clone()
     active = torch.nonzero(plan.slot_active).squeeze(1)
-    _SYNC_INTERSECT.inc()
     slots = intersect.take_tiles(grid, plan.tile_ids)
     rows = max(1, PAIR_BLOCK // max(n, 1))
     for r0 in range(0, active.shape[0], rows):
@@ -276,7 +266,6 @@ def _plan_record(plan: TilePlan, stats: PlanStats, out: RenderOutput,
     """Fold plan-slot counters into the (T,)-shaped FrameRecord."""
     scat = functools.partial(plan_mod.scatter_slots, plan,
                              num_tiles=num_tiles)
-    _SYNC_IS_FULL.inc()
     return FrameRecord(
         is_full=torch.tensor(is_full, device=n_gaussians.device),
         n_gaussians=n_gaussians,
@@ -307,8 +296,6 @@ def render_full_frame(scene, cam: Camera, cfg: RenderConfig,
     out, tplan, n_gaussians, stats = render_planned_frame(scene, cam, tplan,
                                                           cfg)
     coverage = 1.0 - out.transmittance
-    if not isinstance(frame_idx, torch.Tensor):
-        _SYNC_FRAME_IDX.inc()
     state = FrameState(
         rgb=out.rgb, exp_depth=out.exp_depth, trunc_depth=out.trunc_depth,
         source_mask=coverage > cfg.min_coverage,

@@ -40,21 +40,19 @@ def scatter_add(size: int, index: torch.Tensor,
                 values: torch.Tensor) -> torch.Tensor:
     """Deterministic ``zeros((size, ...)).at[index].add(values)``.
 
-    ``index_add_`` on CUDA accumulates with atomics in no fixed order;
-    under ``torch.use_deterministic_algorithms(True)`` torch sorts the
-    indices and sums each run in order instead. The mode is switched on
-    for this call only and restored after it.
+    Each device has one call that sums in element order, so that the
+    result repeats bit for bit: on CUDA an accumulating ``index_put_``,
+    which sorts the indices stably and sums each run of equal indices in
+    order (``index_add_`` there adds with atomics); on the CPU
+    ``index_add_``, which adds one element after another (an
+    accumulating ``index_put_`` there adds large inputs with atomics).
+    Neither depends on torch's global deterministic mode.
     """
     out = torch.zeros((size,) + tuple(values.shape[1:]), dtype=values.dtype,
                       device=values.device)
-    prev = torch.are_deterministic_algorithms_enabled()
-    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
-        out.index_add_(0, index.long(), values)
-    finally:
-        torch.use_deterministic_algorithms(prev, warn_only=warn_only)
-    return out
+    if out.is_cuda:
+        return out.index_put_((index.long(),), values, accumulate=True)
+    return out.index_add_(0, index.long(), values)
 
 
 def untile(tiles: torch.Tensor, tiles_x: int, tiles_y: int) -> torch.Tensor:

@@ -24,15 +24,12 @@ import torch
 
 from repro_torch.core.camera import TILE, Camera, backproject
 from repro_torch.core.raster import scatter_add, tile_view
-from repro_torch.obs.metrics import host_syncs
 
 # A pixel is a usable reprojection source only if enough opacity
 # accumulated behind it in the reference render.
 MIN_COVERAGE = 0.25
 # Paper: interpolate when > 5/6 of the tile's pixels arrived.
 N0_RATIO = 5.0 / 6.0
-# The z-buffer's two boolean-mask indexes: the host waits for each.
-_SYNC_WINNERS = host_syncs("warp.scatter_zbuffer")
 
 
 class WarpResult(NamedTuple):
@@ -66,7 +63,6 @@ def _scatter_zbuffer(ti: torch.Tensor, z: torch.Tensor, valid: torch.Tensor,
     idx = ti_safe[winner]
     cnt = scatter_add(size, idx, torch.ones_like(idx, dtype=torch.float32))
     acc = scatter_add(size, idx, values[winner])
-    _SYNC_WINNERS.inc(2)
     hit = cnt > 0
     out = acc / torch.clamp_min(cnt, 1.0)[:, None]
     return torch.where(hit, zmin, 0.0), out, hit
@@ -105,14 +101,11 @@ def viewpoint_transform(ref_rgb: torch.Tensor, ref_exp_depth: torch.Tensor,
 
     ti, z, src_valid = _project_points(ref_cam, ref_exp_depth,
                                        ref_source_mask, tgt_cam, near)
-    # Colour + the pixel's own scene depth ride the same z-buffer.
-    payload = torch.cat([ref_rgb.reshape(-1, 3),
-                         ref_exp_depth.reshape(-1, 1)], dim=-1)
-    _, out, hit = _scatter_zbuffer(ti, z, src_valid, payload, size)
-    rgb_t = out[:, :3].reshape(h, w, 3)
-    filled = hit.reshape(h, w)
     # Reprojected scene depth = *target-view* z of the winning source.
-    zmap, _, _ = _scatter_zbuffer(ti, z, src_valid, z[:, None], size)
+    zmap, out, hit = _scatter_zbuffer(ti, z, src_valid,
+                                      ref_rgb.reshape(-1, 3), size)
+    rgb_t = out.reshape(h, w, 3)
+    filled = hit.reshape(h, w)
     exp_depth_t = zmap.reshape(h, w)
 
     # Truncated-depth point cloud (separate cloud, max-scatter).

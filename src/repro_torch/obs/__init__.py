@@ -1,9 +1,9 @@
 """Observability: spans for the host trace, the profiler and NVTX with
 Chrome-trace export (``trace``), and the counter/gauge/histogram registry
 whose ``snapshot()`` the serve report composes, with the process-wide
-host-sync and kernel-launch counters (``metrics``)."""
+kernel-launch counters (``metrics``)."""
 from repro_torch.obs.metrics import (PROCESS_METRICS, Counter, Gauge,
-                                     Histogram, MetricsRegistry, host_syncs,
+                                     Histogram, MetricsRegistry,
                                      kernel_launches)
 from repro_torch.obs.trace import (PROCESS_TRACER, Tracer, annotate,
                                    merge_chrome_traces,
@@ -11,6 +11,6 @@ from repro_torch.obs.trace import (PROCESS_TRACER, Tracer, annotate,
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "PROCESS_METRICS",
-    "PROCESS_TRACER", "Tracer", "annotate", "host_syncs", "kernel_launches",
+    "PROCESS_TRACER", "Tracer", "annotate", "kernel_launches",
     "merge_chrome_traces", "validate_chrome_trace",
 ]

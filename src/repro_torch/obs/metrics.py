@@ -14,14 +14,9 @@ plain-types dict (JSON-safe; ``StreamServer.report`` composes it) and
 lock guards creation, mutation and export.
 
 ``PROCESS_METRICS`` is the process-wide registry of what the program
-counts outside any server: ``host_syncs_total{site=...}``, each place
-where the host waits for the device (``host_syncs``), and
-``kernel_launches_total{kernel=...}``, each hand-written kernel's
-launches (``kernel_launches``). A site creates its counter once, when
-its module is imported, so a count is one locked add. A read of values
-the program keeps on the device counts whatever the device, so a CPU run
-counts it too (nothing waits there); a copy of host values to the device
-counts where it makes one.
+counts outside any server: ``kernel_launches_total{kernel=...}``, each
+hand-written kernel's launches (``kernel_launches``). A site creates its
+counter once, when its module is imported, so a count is one locked add.
 """
 from __future__ import annotations
 
@@ -34,7 +29,7 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
-           "PROCESS_METRICS", "host_syncs", "kernel_launches"]
+           "PROCESS_METRICS", "kernel_launches"]
 
 _NAME_RE = re.compile(r"[^a-zA-Z0-9_:]")
 
@@ -292,13 +287,6 @@ class MetricsRegistry:
 
 
 PROCESS_METRICS = MetricsRegistry()
-
-
-def host_syncs(site: str) -> Counter:
-    """The process's count of host waits for the device at ``site``."""
-    return PROCESS_METRICS.counter(
-        "host_syncs_total", "times the host waited for the device",
-        site=site)
 
 
 def kernel_launches(kernel: str) -> Counter:

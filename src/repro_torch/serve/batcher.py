@@ -32,13 +32,10 @@ import torch
 from repro_torch.core import engine
 from repro_torch.core.camera import Camera
 from repro_torch.core.engine import EngineCarry, StreamsResult
-from repro_torch.obs.metrics import host_syncs
 from repro_torch.obs.trace import PROCESS_TRACER, Tracer
 from repro_torch.serve.session import SessionManager
 
 _EYE = np.eye(4, dtype=np.float32)
-# The batch's poses copied to the camera's device (the host waits).
-_SYNC_POSES = host_syncs("batcher.batch")
 
 
 class SlotBatch(NamedTuple):
@@ -183,7 +180,6 @@ class ContinuousBatcher:
                stamps, slot_scene, scene_ids) -> SlotBatch:
         dev = self.cam.device
         i32 = dict(dtype=torch.int32)
-        _SYNC_POSES.inc()
         return SlotBatch(poses=torch.as_tensor(poses, device=dev),
                          counts=torch.as_tensor(counts, **i32),
                          phases=torch.as_tensor(phases, **i32),

@@ -44,13 +44,6 @@ from repro_torch.core.engine import EngineCarry, StreamsResult
 from repro_torch.core.gaussians import GaussianScene
 from repro_torch.core.pipeline import (FrameState, RenderConfig,
                                        StackedRecords, stack_fields)
-from repro_torch.obs.metrics import host_syncs
-
-# The split's host waits: a slot group's counts and phases copied to its
-# device (where they are not there yet), read back for a one-slot group,
-# its slots' scene indices copied to the device, and the counts and
-# phases copied to the first device for the result.
-_SYNC_SPLIT = host_syncs("placement.split")
 
 
 def stream_mesh(num_slots: int, devices: Optional[Sequence] = None
@@ -182,8 +175,6 @@ def build_render_fn(cam: Camera, cfg: RenderConfig,
         gcounts = counts[lo:hi].to(dev)
         gphases = phases[lo:hi].to(dev)
         gcarries = _rows(carries, lo, hi, dev)
-        _SYNC_SPLIT.inc((counts.device != dev) + (phases.device != dev)
-                        + (2 if hi - lo == 1 else int(multi_scene)))
         with _device_context(dev):
             if hi - lo == 1:
                 end, (frames, recs, active) = engine.stream_scan(
@@ -214,7 +205,6 @@ def build_render_fn(cam: Camera, cfg: RenderConfig,
                 for k, dev in enumerate(devices)]
         parts = _run_by_device(jobs, render_group)
         out = devices[0]
-        _SYNC_SPLIT.inc((counts.device != out) + (phases.device != out))
         carry = EngineCarry(
             state=_cat([p[0].state for p in parts], out),
             prev_pose=torch.cat([p[0].prev_pose.to(out) for p in parts]),

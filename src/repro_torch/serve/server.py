@@ -24,10 +24,9 @@ devices; where one device divides B (a one-card host, or
 Overlap: the reference dispatches every group asynchronously and waits
 once, so one bucket's device work overlaps the next group's host work.
 In the port every frame still syncs the host once, where the intersect
-reads its pair total to size the key buffer (``kernels/intersect_bin.py``,
-counted at ``pipeline.intersect_and_bin``), so the groups of a round run
-one after another, host and device in turn. The LDU schedule itself runs
-on the device (``kernels/ldu_fill.py``).
+reads its pair total to size the key buffer (``kernels/intersect_bin.py``),
+so the groups of a round run one after another, host and device in turn.
+The LDU schedule itself runs on the device (``kernels/ldu_fill.py``).
 
 Scenes come from a ``SceneRegistry`` (serve/scenes.py): pass one with
 scenes registered, or pass a bare ``GaussianScene`` and the server
@@ -80,7 +79,7 @@ from repro_torch.core.streaming import (AcceleratorConfig, FrameWork,
                                         frameworks_from_stacked,
                                         simulate_sequence, throughput)
 from repro_torch.interop import to_numpy
-from repro_torch.obs.metrics import MetricsRegistry, host_syncs
+from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import Tracer
 from repro_torch.scenes.trajectory import dolly_trajectory, orbit_trajectory
 from repro_torch.serve.admission import (AdmissionConfig,
@@ -92,10 +91,6 @@ from repro_torch.serve.cache import (BucketPolicy, ExecutableCache,
 from repro_torch.serve.placement import build_render_fn, stream_mesh
 from repro_torch.serve.scenes import DEFAULT_SCENE_BUCKETS, SceneRegistry
 from repro_torch.serve.session import SessionManager, StreamSession
-
-# The round's records read to the host in ``_observe``: four reads, and a
-# fifth when the group rendered a warped frame.
-_SYNC_OBSERVE = host_syncs("server.observe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -722,7 +717,6 @@ class StreamServer:
             t.reshape(-1, t.shape[-1]).sum(axis=-1)[mask])
         self._m_culled.observe_many(
             to_numpy(recs.culled_pairs).reshape(-1)[mask])
-        _SYNC_OBSERVE.inc(4 + bool(sparse.any()))
         if sparse.any():
             demand = to_numpy(rerender_demand(
                 recs.active, recs.overflow_tiles)).reshape(-1)

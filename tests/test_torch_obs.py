@@ -1,6 +1,6 @@
 """The port's observability (``repro_torch.obs``): one span mechanism for
 the host trace and ``torch.profiler``, the server's queue-wait and round
-histograms, and the process's host-sync and kernel-launch counters. All on
+histograms, and the process's kernel-launch counters. All on
 the CPU; nothing here imports JAX."""
 import json
 
@@ -14,7 +14,7 @@ from repro_torch.core.camera import look_at, make_camera
 from repro_torch.core.pipeline import RenderConfig
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import (PROCESS_METRICS, MetricsRegistry,
-                                     host_syncs, kernel_launches)
+                                     kernel_launches)
 from repro_torch.obs.trace import (PROCESS_TRACER, Tracer, annotate,
                                    merge_chrome_traces,
                                    validate_chrome_trace)
@@ -25,16 +25,6 @@ from repro_torch.serve import SceneRegistry, ServeConfig, StreamServer
 CPU = "cpu"
 CFG = RenderConfig(window=3, capacity=128, chunk=32, rerender_capacity=8,
                    impl="cuda")
-# A frame's host waits by site, as torch's CUDA sync debug mode counts
-# them on the card: the active slots' count, the key-frame flag and frame
-# index copied to the device, and the warp's two z-buffer scatters, each
-# with two boolean indexes.
-KEY_FRAME_SITES = {"pipeline.intersect_and_bin": 1,
-                   "pipeline.plan_record": 1,
-                   "pipeline.render_full_frame": 1}
-WARPED_FRAME_SITES = {"pipeline.intersect_and_bin": 1,
-                      "pipeline.plan_record": 1,
-                      "warp.scatter_zbuffer": 4}
 
 
 @pytest.fixture(scope="module")
@@ -237,32 +227,11 @@ def test_report_carries_the_new_histograms(scene, cam):
         hist["serve_latency_seconds"]["max"]
 
 
-# --- host syncs and kernel launches ----------------------------------------
-
-def _sites(before):
-    after = PROCESS_METRICS.family("host_syncs_total")
-    return {k: v - before.get(k, 0) for k, v in after.items()
-            if v != before.get(k, 0)}
-
-
-def test_host_syncs_counted_at_their_sites(scene, cam):
-    """One key frame and one warped frame of the stream path count the
-    places where the host waits for the device on the card, by site."""
-    step = engine.make_frame_step(scene, cam, CFG)
-    poses = torch.from_numpy(_poses(2))
-    carry = engine.init_carry(cam, poses[0])
-    before = PROCESS_METRICS.family("host_syncs_total")
-    carry, _ = step(carry, poses[0])
-    assert _sites(before) == KEY_FRAME_SITES
-    before = PROCESS_METRICS.family("host_syncs_total")
-    carry, _ = step(carry, poses[1])
-    assert _sites(before) == WARPED_FRAME_SITES
-
+# --- kernel launches -------------------------------------------------------
 
 def test_process_counters_are_created_once():
     from repro_torch.kernels import (ldu_fill, preprocess,  # noqa: F401
                                      raster_plan, raster_tile, tile_sort)
-    assert host_syncs("test.site") is host_syncs("test.site")
     assert kernel_launches("raster_tile") is \
         PROCESS_METRICS.counter("kernel_launches_total", kernel="raster_tile")
     reg = MetricsRegistry()

@@ -4,6 +4,9 @@ against the JAX reference's ``ref``, ``jnp_chunked``, ``pallas_fused``
 and ``pallas`` (both interpret mode) on the CPU. Images agree to 2e-5 (the reference suite's fused-vs-jnp pin,
 tests/test_raster_plan.py), processed pairs exactly, lane contributions
 to rtol 1e-4 (sums over 256 pixels in another order)."""
+import sys
+import threading
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -302,10 +305,74 @@ def test_raster_tile_ref_single_tile(tile_inputs):
     P.assert_close(got[5], want[5], rtol=CONTRIB_RTOL, atol=1e-6)
 
 
+def _scatter_inputs():
+    """Indices with long runs of ties and values whose float sum depends
+    on the order of the adds."""
+    gen = torch.Generator().manual_seed(7)
+    idx = torch.randint(0, 64, (20000,), generator=gen, dtype=torch.int32)
+    vals = torch.randn((20000, 3), generator=gen) * 1e3
+    return idx, vals
+
+
+def _in_order(size, idx, vals):
+    out = torch.zeros((size,) + tuple(vals.shape[1:]), dtype=vals.dtype)
+    for i, v in zip(idx.tolist(), vals):
+        out[i] += v
+    return out
+
+
 def test_scatter_add_restores_deterministic_mode():
+    """With the mode off and on, the sums are in element order and the
+    mode reads what the caller set."""
     idx = torch.tensor([3, 1, 3, 0])
     vals = torch.tensor([1.0, 2.0, 3.0, 4.0])
+    big_idx, big_vals = _scatter_inputs()
+    want = _in_order(64, big_idx, big_vals)
     before = torch.are_deterministic_algorithms_enabled()
-    out = traster.scatter_add(5, idx, vals)
-    assert torch.equal(out, torch.tensor([4.0, 2.0, 0.0, 4.0, 0.0]))
-    assert torch.are_deterministic_algorithms_enabled() == before
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    try:
+        for mode in (False, True):
+            torch.use_deterministic_algorithms(mode)
+            out = traster.scatter_add(5, idx, vals)
+            assert torch.equal(out, torch.tensor([4.0, 2.0, 0.0, 4.0, 0.0]))
+            got = traster.scatter_add(64, big_idx, big_vals)
+            assert torch.equal(got, want)
+            assert torch.are_deterministic_algorithms_enabled() == mode
+    finally:
+        torch.use_deterministic_algorithms(before, warn_only=warn_only)
+
+
+def test_scatter_add_from_threads_leaves_the_mode_alone():
+    """Two threads summing at once (as the slot split's groups render)
+    each get the single-threaded bits, and the deterministic mode, held
+    off and then on by the caller, never changes under them."""
+    idx, vals = _scatter_inputs()
+    want = traster.scatter_add(64, idx, vals)
+    before = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for mode in (False, True):
+            torch.use_deterministic_algorithms(mode)
+            modes, results = [], []
+
+            def work():
+                for _ in range(20):
+                    results.append(traster.scatter_add(64, idx, vals))
+                    modes.append(torch.are_deterministic_algorithms_enabled())
+
+            threads = [threading.Thread(target=work) for _ in range(2)]
+            for t in threads:
+                t.start()
+            for _ in range(200):
+                modes.append(torch.are_deterministic_algorithms_enabled())
+            for t in threads:
+                t.join(timeout=60)
+                assert not t.is_alive()
+            assert len(results) == 40
+            assert all(torch.equal(r, want) for r in results)
+            assert set(modes) == {mode}
+    finally:
+        sys.setswitchinterval(interval)
+        torch.use_deterministic_algorithms(before, warn_only=warn_only)
