@@ -130,7 +130,9 @@ Phases (each prints its own lines; a failed check exits non-zero):
    after the first against its bound (the larger of the executed FLOPs
    over the bf16 peak and the bytes the step must move over the HBM
    rate), MFU (6 N D over the step time at the bf16 peak), tokens/s and
-   peak memory; one step profiled (launches, idle share, top kernels),
+   peak memory; one step profiled (launches, idle share, top kernels;
+   its optimizer's AdamW kernel launches counted, 3, and the eager loop
+   never called),
    one counted under ``FlopCounterMode`` (phase 9b's reference) and one
    more split into forward, backward and optimizer. Then the same state
    at the train4k cell's batch, 2 x 4,096, where every layer's attention
@@ -152,6 +154,19 @@ Phases (each prints its own lines; a failed check exits non-zero):
    ``F.scaled_dot_product_attention``'s (the library yardstick, never
    called by the port). ``python3 chip_smoke.py --only 7a`` runs phase 1
    and this phase alone.
+7c. The AdamW kernel (``csrc/adamw.cu``) over minicpm3-4b's 871 leaves at
+   full size (bf16 parameters and gradients drawn from a seed, float32
+   moments, 51 GB): its three kernels' ptxas lines and occupancy; one
+   ``adamw_update`` (three launches, the eager loop never called), its
+   norm within ADAMW_NORM_TOL of float64 and, leaf by leaf from the same
+   draws, the eager loop given the kernel's norm: parameters and moments
+   bit for bit; a second call's norm of the same gradients bit-equal;
+   device ms of the kernel (all three by CUDA events around queued
+   calls; each kernel's in the profiler where a trace holds every
+   launch's record, which after phase 7 it may not) and of the eager
+   loop (CUDA events) against the bound, 24 bytes a bf16 element and 32
+   a float32 one at the HBM rate.
+   ``python3 chip_smoke.py --only 7c`` runs phase 1 and this phase alone.
 7b. The four registered configs at full width, depth cut to
    TRAIN_CHECK_LAYERS layers, float32 with TF32 off: one train step with
    ``remat="full"`` against ``"none"`` (loss, gradients and updated
@@ -170,9 +185,11 @@ Phases (each prints its own lines; a failed check exits non-zero):
    SHARD_LOSS_GATE; every parameter and moment a DTensor with the
    placements ``param_shardings`` gives; a checkpoint saved from the
    mesh written bit for bit, restored onto the mesh and onto the
-   unsharded path bit for bit, and the next step's loss equal on both.
-   Prints the step median against phase 7's and the bound, MFU, peak
-   memory, and one profiled step's launches and idle share.
+   unsharded path bit for bit, and the next step's loss equal on both;
+   one profiled step's optimizer through the AdamW kernel's update on the
+   local tensors (1 launch, the eager loop never called). Prints the step
+   median against phase 7's and the bound, MFU, peak memory, and that
+   step's launches and idle share.
 8b. Over the same group: ``compressed_psum_grads`` over phase 8's full
    gradient tree (dequantized + residual = input exactly; timed in turns
    against a plain all-reduce of each leaf) and ``pipeline_apply`` with
@@ -374,7 +391,7 @@ def print_occupancy(what, lines, threads, smem):
 
 def phase_device():
     from concurrent.futures import ThreadPoolExecutor
-    from repro_torch.kernels import (flash_attention, intersect_bin,
+    from repro_torch.kernels import (adamw, flash_attention, intersect_bin,
                                      ldu_fill, preprocess, raster_plan,
                                      raster_tile, tile_sort)
     print("== phase 1: device", flush=True)
@@ -388,7 +405,7 @@ def phase_device():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     mods = (preprocess, raster_plan, raster_tile, tile_sort, ldu_fill,
-            intersect_bin, flash_attention)
+            intersect_bin, flash_attention, adamw)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as pool:
         builds = [pool.submit(m.build) for m in mods]
@@ -1466,31 +1483,43 @@ INTERSECT_KERNELS = ("intersect_map_kernel", "intersect_pairs_kernel",
                      "intersect_scan_kernel", "bin_select_kernel")
 
 
-def device_ms_per_call(fn, names, runs, flush=None):
+def device_ms_per_call(fn, names, runs, flush=None, expect=None):
     """Mean device ms a call of ``fn`` of the kernels whose names contain
     one of ``names`` (None: every kernel), in all and by name, over
     ``runs`` profiled calls (L2 flushed before each where ``flush`` is
-    given)."""
+    given). With ``expect`` (launches a call of each of ``names``) a
+    trace that lacks a launch's record is taken again, as ``kernel_ms``
+    does, and (None, None) comes back where three traces all lack one:
+    after phase 7's profiled steps the profiler drops records."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            if flush is not None:
-                flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    by = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA or e.name.startswith("repro."):
-            continue
-        hit = [n for n in names if n in e.name] if names else [e.name]
-        if hit:
-            by[hit[0]] = by.get(hit[0], 0.0) + e.time_range.elapsed_us() / 1e3
-    by = {k: v / runs for k, v in by.items()}
-    return sum(by.values()), by
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                if flush is not None:
+                    flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        by, count = {}, {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA \
+                    or e.name.startswith("repro."):
+                continue
+            hit = [n for n in names if n in e.name] if names else [e.name]
+            if hit:
+                by[hit[0]] = by.get(hit[0], 0.0) \
+                    + e.time_range.elapsed_us() / 1e3
+                count[hit[0]] = count.get(hit[0], 0) + 1
+        if expect is None or all(count.get(n, 0) == expect * runs
+                                 for n in names):
+            by = {k: v / runs for k, v in by.items()}
+            return sum(by.values()), by
+        print(f"  profiler trace {attempt + 1} holds {count} of "
+              f"{expect * runs} launches each", flush=True)
+    return None, None
 
 
 def intersect_inputs(name, n, width, height, cfg):
@@ -2677,6 +2706,7 @@ def phase_train_full(smi):
     from torch.profiler import ProfilerActivity, profile, record_function
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import get_config
+    from repro_torch.kernels import adamw as KA
     from repro_torch.launch import train as LT
     from repro_torch.train import data as D
     from repro_torch.train import optimizer as O
@@ -2740,16 +2770,24 @@ def phase_train_full(smi):
           f"{6 * cfg.param_count() * tokens / 1e12:.2f} TFLOP a step); "
           f"{tokens / step_ms * 1e3:.1f} tokens/s", flush=True)
 
-    # One step as train_loop runs it, profiled: launches and idle share.
+    # One step as train_loop runs it, profiled: launches and idle share;
+    # its optimizer counted: the AdamW kernel's launches, no eager pass.
     step_fn = TS.make_train_step(cfg, opt_cfg)
     batch = D.batch_at(data_cfg, TRAIN_STEPS)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    adamw0 = KA._LAUNCHES.value
+    with CallCounter(O, "adamw_update_eager") as eager, \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, _ = step_fn(state, batch)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    adamw_launches = int(KA._LAUNCHES.value - adamw0)
+    check(adamw_launches == KA.LAUNCHES and eager.calls == 0,
+          f"the step's optimizer through the AdamW kernel: {adamw_launches} "
+          f"launches (norm 2, update 1), the eager loop called "
+          f"{eager.calls} times")
     busy_ms, n_kernels, idle = device_split(prof.events(), wall)
     print(f"  one train step profiled: wall {wall:.3f} ms (profiler on), "
           f"kernels {busy_ms:.3f} ms over {n_kernels} launches "
@@ -2813,7 +2851,8 @@ def phase_train_full(smi):
             "tok_per_s": tokens / step_ms * 1e3, "peak_gb": peak,
             "launches": n_kernels, "idle": idle, "losses": losses,
             "flops_counted": counted, "bound_flops": flops,
-            "flash_launches": flash_launches}
+            "flash_launches": flash_launches,
+            "adamw_launches": adamw_launches}
 
 
 def flash_steps(cfg, state, step_fn, smi):
@@ -3014,6 +3053,160 @@ def phase_flash_kernel(smi, report):
                 max_abs_err=fwd_err, ms=fwd_ms, ms_with_launch=fwd_launch,
                 plain_ms=loop_fwd, bound_ms=fwd_bound, bound_by="operations",
                 library_ms=lib_fwd, launches=None)
+
+
+# Phase 7c: the AdamW kernel at minicpm3-4b's 871 leaves, bf16, full size.
+ADAMW_SEED = 7_000_000
+ADAMW_RUNS = 5            # kernel calls queued between two CUDA events
+ADAMW_EAGER_RUNS = 2      # eager-loop calls queued likewise
+ADAMW_NORM_TOL = 1e-5     # the kernel's norm against float64, relative
+# (entry function, threads a CTA, shared bytes a CTA)
+ADAMW_KERNELS = (("norm_chunks", 256, 256 * 8),
+                 ("norm_finish", 1024, 1024 * 8),
+                 ("update_chunks", 256, 0))
+ADAMW_STD = (0.02, 1e-4, 1e-4, 1e-4)           # p, g, m, sqrt(v)
+
+
+def phase_adamw_kernel(smi, report):
+    """7c: the AdamW kernel over minicpm3-4b's leaves at full size against
+    the eager loop: the update through ``adamw_update`` (three launches,
+    no eager pass), its norm against float64 and, leaf by leaf from the
+    same draws, the eager loop given the kernel's norm, bit for bit; a
+    repeat's norm bit-equal; device ms of both (CUDA events around queued
+    calls; the kernel's split in the profiler where its trace is whole)
+    against the bound, 24 bytes a bf16 element and 32 a float32 one at
+    the HBM rate."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import adamw as KA
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as O
+    cfg = get_config(TRAIN_ARCH)
+    print(f"== phase 7c: the AdamW kernel over {TRAIN_ARCH}'s leaves, "
+          f"{cfg.dtype}, float32 moments ({smi})", flush=True)
+    free_cuda()
+    for name, threads, smem in ADAMW_KERNELS:
+        print_occupancy(name, ptxas_lines(report, name), threads, smem)
+    params = {k: p.detach() for k, p in
+              M.empty_params(cfg, device="cuda").named_parameters()}
+    names = list(params)
+
+    def draw(i, what, like, dtype):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(ADAMW_SEED + 4 * i + what)
+        x = torch.randn(like.shape, generator=gen, device="cuda")
+        x = x * ADAMW_STD[what]
+        return (x.square() if what == 3 else x).to(dtype)
+
+    def bits(x):
+        return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+    def originals(i, k):
+        p = params[k]
+        return (draw(i, 0, p, p.dtype), draw(i, 2, p, torch.float32),
+                draw(i, 3, p, torch.float32))
+
+    grads, mu, nu = {}, {}, {}
+    for i, k in enumerate(names):
+        p0, mu[k], nu[k] = originals(i, k)
+        params[k].copy_(p0)
+        grads[k] = draw(i, 1, params[k], params[k].dtype)
+        del p0
+    elems = sum(p.numel() for p in params.values())
+    wide = sum(p.numel() for p in params.values()
+               if p.dtype == torch.float32)
+    nbytes = 24 * (elems - wide) + 32 * wide
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  {len(names)} leaves, {elems:,} elements ({wide:,} float32); "
+          f"{KA.leaf_table(grads, params, mu, nu, names)[1]:,} chunks of "
+          f"{KA.CHUNK:,}; memory in use {torch.cuda.memory_allocated() / 1e9:.2f}"
+          f" GB", flush=True)
+    opt_cfg = O.OptimizerConfig(peak_lr=3e-4, warmup_steps=0)
+    opt = O.OptState(step=0, mu=mu, nu=nu)
+    check(KA.route(grads, params, mu, nu) == "kernel",
+          "plain CUDA leaves route to the kernel")
+
+    # The update through adamw_update: three launches, no eager pass; its
+    # norm against float64 and the eager loop's float32 norm.
+    before = KA._LAUNCHES.value
+    with CallCounter(O, "adamw_update_eager") as eager:
+        _, opt1, metrics = O.adamw_update(grads, opt, params, opt_cfg)
+    torch.cuda.synchronize()
+    launches = int(KA._LAUNCHES.value - before)
+    check(launches == KA.LAUNCHES and eager.calls == 0,
+          f"adamw_update on the card: {launches} launches, the eager loop "
+          f"called {eager.calls} times")
+    a = metrics["grad_norm"]
+    norm = float(a)
+    f64 = math.sqrt(sum(float(g.double().square().sum())
+                        for g in grads.values()))
+    eager_norm = float(O.global_norm(grads))
+    check(abs(norm - f64) <= ADAMW_NORM_TOL * f64,
+          f"norm {norm!r} against float64 {f64!r}: rel "
+          f"{abs(norm - f64) / f64:.3e} <= {ADAMW_NORM_TOL:g} (the eager "
+          f"loop's float32 norm {eager_norm!r}: rel "
+          f"{abs(eager_norm - f64) / f64:.3e})")
+
+    # The eager loop leaf by leaf from the same draws, given the kernel's
+    # norm: the same bits.
+    differ, worst = [], 0.0
+    with Patched(O, "global_norm", lambda real: lambda tree: a):
+        for i, k in enumerate(names):
+            p0, m0, v0 = originals(i, k)
+            O.adamw_update_eager({k: grads[k]}, O.OptState(0, {k: m0},
+                                                           {k: v0}),
+                                 {k: p0}, opt_cfg)
+            for what, got, ref in (("p", params[k], p0), ("m", mu[k], m0),
+                                   ("v", nu[k], v0)):
+                if not torch.equal(bits(got), bits(ref)):
+                    differ.append(f"{k}.{what}")
+                    worst = max(worst, max_err(got.float(), ref.float()))
+            del p0, m0, v0
+    check(not differ, f"parameters and moments bit-equal to the eager loop "
+          f"in all {len(names)} leaves ({len(differ)} tensors differ"
+          f"{', max abs ' + format(worst, '.3e') if differ else ''}"
+          f"{': ' + ', '.join(differ[:5]) if differ else ''})")
+    _, opt1, again = O.adamw_update(grads, opt1, params, opt_cfg)
+    check(torch.equal(bits(again["grad_norm"]), bits(a)),
+          f"the same gradients' norm again bit-equal: {norm!r}")
+
+    # Device time: calls queued back to back between CUDA events; each
+    # kernel's own from the profiler's trace where it holds every record.
+    def step():
+        O.adamw_update(grads, opt1, params, opt_cfg)
+
+    kernel = queued_ms(step, ADAMW_RUNS)
+    traced, by = device_ms_per_call(step, [n for n, _, _ in ADAMW_KERNELS],
+                                    ADAMW_RUNS, expect=1)
+    t0 = time.perf_counter()
+    O.adamw_update(grads, opt1, params, opt_cfg)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    eager_ms = queued_ms(lambda: O.adamw_update_eager(grads, opt1, params,
+                                                      opt_cfg),
+                         ADAMW_EAGER_RUNS)
+    split = ("no split: no profiler trace held every launch's record"
+             if traced is None else
+             f"in the profiler's trace {traced:.3f} ms: "
+             + ", ".join(f"{n} {ms:.3f}" for n, ms in by.items()))
+    print(f"  kernel: {kernel:.3f} ms a call ({ADAMW_RUNS} calls queued, "
+          f"CUDA events); {split}"
+          + f"; host {host_ms:.3f} ms to issue one; bound {bound_ms:.3f} ms "
+          f"({nbytes / 1e9:.2f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s): "
+          f"{bound_ms / kernel:.3f} of it, {nbytes / kernel / 1e6:.1f} GB/s",
+          flush=True)
+    print(f"  the eager loop (plain version): {eager_ms:.3f} ms a call "
+          f"({ADAMW_EAGER_RUNS} queued); kernel / eager "
+          f"{kernel / eager_ms:.4f} ({smi})", flush=True)
+    del params, grads, mu, nu, opt, opt1, metrics, again, a
+    free_cuda()
+    # launches: phase 7's counted step (main sets them)
+    return dict(name="adamw", route="cuda",
+                source="src/repro_torch/csrc/adamw.cu",
+                replaces="no TPU kernel: src/repro/train/optimizer.py:58 "
+                         "adamw_update (jnp)",
+                max_abs_err=worst, ms=kernel, ms_with_launch=None,
+                plain_ms=eager_ms, bound_ms=bound_ms, bound_by="bytes",
+                library_ms=None, launches=None)
 
 
 def phase_train_checks(smi):
@@ -3268,6 +3461,7 @@ def phase_train_mesh(smi, phase7):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.distributed import sharding as S
+    from repro_torch.kernels import adamw as KA
     from repro_torch.launch import train as LT
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.train import checkpoint as C
@@ -3352,13 +3546,20 @@ def phase_train_mesh(smi, phase7):
         return S.distribute(batch, S.batch_shardings(batch, mesh))
 
     batch = mesh_batch(SHARD_STEPS)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    adamw0 = KA._LAUNCHES.value
+    with CallCounter(O, "adamw_update_eager") as eager, \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, _ = step_fn(state, batch)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    adamw_launches = int(KA._LAUNCHES.value - adamw0)
+    check(adamw_launches == 1 and eager.calls == 0,
+          f"the mesh step's optimizer through the AdamW kernel's update on "
+          f"the local tensors: {adamw_launches} launches (the norm the "
+          f"DTensors' own), the eager loop called {eager.calls} times")
     busy_ms, n_kernels, idle = device_split(prof.events(), wall)
     del prof
     print(f"  one mesh step profiled: wall {wall:.3f} ms (profiler on), "
@@ -3757,8 +3958,14 @@ def main(argv):
         flash = phase_flash_kernel(smi, reports["flash_attention"])
         print(json.dumps({"kernels": [flash]}))
         return 0
+    if argv == ["--only", "7c"]:
+        smi, reports = phase_device()
+        print(json.dumps({"kernels": [phase_adamw_kernel(
+            smi, reports["adamw"])]}))
+        return 0
     if argv:
-        print("usage: chip_smoke.py [--only 7a]", file=sys.stderr)
+        print("usage: chip_smoke.py [--only 7a | --only 7c]",
+              file=sys.stderr)
         return 2
     from repro_torch.core.camera import make_camera
     from repro_torch.core.pipeline import RenderConfig
@@ -3822,6 +4029,8 @@ def main(argv):
     train = phase_train_full(smi)
     kernels.append(phase_flash_kernel(smi, reports["flash_attention"]))
     kernels[-1]["launches"] = train["flash_launches"]
+    kernels.append(phase_adamw_kernel(smi, reports["adamw"]))
+    kernels[-1]["launches"] = train["adamw_launches"]
     dryrun = start_dryrun()
     phase_train_checks(smi)
     phase_dryrun(smi, dryrun)

@@ -10,9 +10,12 @@ whose decoupled decay and eps placement round differently.
 
 The step count is a host integer and the schedule's scalars are computed
 on the host in float32 (numpy), as the reference's traced float32
-scalars are, so an update needs no device sync. The update runs leaf by
-leaf and in place, so the float32 transients of one leaf at a time are
-alive on top of the state.
+scalars are, so an update needs no device sync. On the card (plain or
+DTensor leaves) the update runs in the multi-tensor kernel
+(``kernels/adamw.py``), in place, with
+no transient beyond a double a chunk; elsewhere (``adamw_update_eager``)
+it runs leaf by leaf and in place, so the float32 transients of one leaf
+at a time are alive on top of the state.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ from typing import Dict, Mapping, NamedTuple, Tuple
 import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
+
+from repro_torch.kernels import adamw as KA
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,8 +89,18 @@ def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
     return norm.full_tensor() if isinstance(norm, DTensor) else norm
 
 
-def _local(x: torch.Tensor) -> torch.Tensor:
-    return x.to_local() if isinstance(x, DTensor) else x
+def _step_scalars(cfg: OptimizerConfig, step: int) -> Tuple[float, float,
+                                                             float]:
+    """(learning rate, 1 - b1^step, 1 - b2^step) of update ``step``, in
+    float32 as the reference computes them."""
+    f32 = np.float32
+    return (lr_schedule(cfg, step),
+            float(f32(1) - f32(cfg.b1) ** f32(step)),
+            float(f32(1) - f32(cfg.b2) ** f32(step)))
+
+
+def _clip_scale(cfg: OptimizerConfig, gnorm: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_max(cfg.clip_norm / (gnorm + 1e-9), 1.0)
 
 
 @torch.no_grad()
@@ -95,19 +110,46 @@ def adamw_update(grads: Mapping[str, torch.Tensor], opt: OptState,
     """One AdamW step. Updates ``params`` and ``opt``'s moments in place
     and returns (params, the advanced OptState, metrics): ``grad_norm``
     (a device scalar, before clipping) and ``lr`` (a float). DTensor
-    gradients must have their parameters' placements."""
+    gradients must have their parameters' placements.
+
+    ``kernels/adamw.route`` decides who computes it: plain CUDA leaves on
+    one device take the multi-tensor kernel (three launches, the eager
+    loop's arithmetic; the norm summed in a fixed order in double); DTensor
+    leaves on CUDA its update on their local tensors, with the eager
+    path's norm and clip scale (``global_norm`` sums over the mesh), so
+    they get the eager loop's bits; CPU, fake and meta tensors
+    ``adamw_update_eager``; any other CUDA case raises ``ValueError``."""
+    way = KA.route(grads, params, opt.mu, opt.nu)
+    if way == "eager":
+        return adamw_update_eager(grads, opt, params, cfg)
+    step = opt.step + 1
+    lr, b1c, b2c = _step_scalars(cfg, step)
+    norm_scale = None
+    if way == "mesh":
+        gnorm = global_norm(grads)
+        norm_scale = torch.stack([gnorm, _clip_scale(cfg, gnorm)])
+    gnorm = KA.adamw(grads, params, opt.mu, opt.nu,
+                     KA.scalars(cfg, lr, b1c, b2c), norm_scale)
+    metrics = {"grad_norm": gnorm, "lr": lr}
+    return params, OptState(step=step, mu=opt.mu, nu=opt.nu), metrics
+
+
+@torch.no_grad()
+def adamw_update_eager(grads: Mapping[str, torch.Tensor], opt: OptState,
+                       params: Mapping[str, torch.Tensor],
+                       cfg: OptimizerConfig
+                       ) -> Tuple[Mapping[str, torch.Tensor], OptState, dict]:
+    """``adamw_update`` leaf by leaf in eager PyTorch (the plain version):
+    the CPU's and fake tensors' path, and the kernel's yardstick."""
     step = opt.step + 1
     gnorm = global_norm(grads)
-    scale = torch.clamp_max(cfg.clip_norm / (gnorm + 1e-9), 1.0)
-    lr = lr_schedule(cfg, step)
-    f32 = np.float32
-    b1c = float(f32(1) - f32(cfg.b1) ** f32(step))
-    b2c = float(f32(1) - f32(cfg.b2) ** f32(step))
+    scale = _clip_scale(cfg, gnorm)
+    lr, b1c, b2c = _step_scalars(cfg, step)
     # Elementwise from here: a DTensor's parameter, gradient and moments
     # share placements, so each rank updates its own shards.
     for name, p in params.items():
-        m, v, p = _local(opt.mu[name]), _local(opt.nu[name]), _local(p)
-        g = _local(grads[name]).float() * scale
+        m, v, p = KA.local(opt.mu[name]), KA.local(opt.nu[name]), KA.local(p)
+        g = KA.local(grads[name]).float() * scale
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
         del g

@@ -3,7 +3,8 @@
 
 ``make_train_step(cfg, opt_cfg, mesh)`` returns ``(TrainState, batch) ->
 (TrainState, metrics)``: autograd of ``loss + MOE_AUX_WEIGHT * aux``,
-then ``optimizer.adamw_update`` in place.
+then ``optimizer.adamw_update`` in place, under the span
+``repro.train/optimizer``.
 
 With a ``mesh`` (a ``DeviceMesh`` with "data" and "model" axes, and
 "pod" on a multi-pod mesh) the parameters and moments are DTensors
@@ -37,6 +38,7 @@ from repro_torch.distributed import sharding as S
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models import sharding_hooks as hooks
+from repro_torch.obs.trace import annotate
 from repro_torch.train.optimizer import (OptimizerConfig, OptState,
                                          adamw_update, init_opt_state)
 
@@ -196,8 +198,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig, mesh=None):
         grads = {k: S.place(g, S.Sharding(p.device_mesh, p.placements))
                  if isinstance(p, DTensor) else g
                  for (k, p), g in zip(named.items(), grads)}
-        _, new_opt, opt_metrics = adamw_update(grads, state.opt, named,
-                                               opt_cfg)
+        with annotate("repro.train/optimizer"):
+            _, new_opt, opt_metrics = adamw_update(grads, state.opt, named,
+                                                   opt_cfg)
         metrics = {k: _full(v.detach()) for k, v in metrics.items()}
         metrics = dict(metrics, **opt_metrics, step=new_opt.step)
         return TrainState(params=state.params, opt=new_opt), metrics
